@@ -1,0 +1,132 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+The sources are ``hla_la_tpu_torch/csrc/*.cu``, each with a plain C entry
+point that launches on the caller's stream and returns
+``cudaGetLastError()``.  They are compiled for Hopper (``sm_90a``) into one
+shared library under ``build/hla_la_tpu_torch/`` at the repository root
+(a per-user cache when the package is installed, see ``build_dir``), on
+first use, keyed on a hash of the sources and flags, so an edit rebuilds and
+an unchanged tree reuses the library.  There is no fallback: a missing
+``nvcc`` or a failed build raises with the compiler's output.
+
+Full-precision math on purpose: ``--use_fast_math`` would swap ``expf`` for
+``__expf``, which misses the pair reduction's 1e-6 relative bar.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC = PKG_DIR / "csrc"
+# -Xptxas -v: the build log lists each kernel's registers, shared memory
+# and spills
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of every C entry point; all of them return int
+_ENTRY_POINTS = {
+    "hla_banded_nw_forward": [_vp, _vp, _vp, _int, _int, _int,
+                              _float, _float, _float, _float,
+                              _vp, _vp, _vp, _vp, _vp],
+    "hla_pair_ll_diff": [_vp, _int, _int, _vp, _vp],
+    "hla_pair_ll_read_chunk": [],
+}
+
+
+class KernelLibrary:
+    """The loaded kernel library plus what its build reported."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, build_s: float,
+                 log: str):
+        self.lib = lib
+        self.path = path
+        self.build_s = build_s      # 0.0 when an existing build was reused
+        self.log = log
+
+    def check(self, name: str, rc: int) -> None:
+        """Raise if a C entry point returned a CUDA error code."""
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the CUDA kernels cannot be built")
+    return nvcc
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir(pkg_dir: Path = PKG_DIR) -> Path:
+    """``build/hla_la_tpu_torch/`` at the root of a source checkout (the
+    directory with ``pyproject.toml`` beside the package).  An installed
+    package builds into a per-user cache instead,
+    ``$XDG_CACHE_HOME/hla_la_tpu_torch`` (default ``~/.cache``): its
+    site-packages may be read-only and is shared by every environment."""
+    root = pkg_dir.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "hla_la_tpu_torch"
+    cache = (os.environ.get("XDG_CACHE_HOME")
+             or os.path.join(os.path.expanduser("~"), ".cache"))
+    return Path(cache) / "hla_la_tpu_torch"
+
+
+def build() -> KernelLibrary:
+    """Compile (if needed) and load the kernel library."""
+    out_dir = build_dir()
+    out = out_dir / f"libhla_la_tpu_torch_{_digest()}.so"
+    log = ""
+    build_s = 0.0
+    if not out.exists():
+        nvcc = find_nvcc()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               *map(str, _sources())]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_s = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return KernelLibrary(lib, out, build_s, log)
+
+
+_LIBRARY: KernelLibrary | None = None
+
+
+def library() -> KernelLibrary:
+    """The process's kernel library, built on first use."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        _LIBRARY = build()
+    return _LIBRARY
