@@ -22,12 +22,31 @@ and no result line is printed:
   (f) reference on a small world (60 alleles per locus, 40x): the port's CLI
       on cuda against the port's CLI on the CPU, whose plain kernels the
       tests hold to the JAX package.  Identical coverage track and calls,
-      Q1/Q2 within 1e-3.
+      Q1/Q2 within 1e-3;
+  (g) K2, the banded NW forward for bands wider than 32, against the same
+      plain version on the card, bit-identical on live rows, at
+      B x L x W = 128 x 16,384 x 256 (the long-read working point),
+      1,024 x 1,400 x 160 (W not a power of two), 256 x 500 x 100 (the
+      last warp part idle; also held against the CPU), 838 x 10,000 x 256
+      (the most jobs one NW call of phase (h) holds under the aligner's
+      pointer budget) and 8,192 x 1,100 x 256 (pointer offsets past 2^31);
+  (h) end to end on long reads: a two-locus world with class-I-sized genes
+      (2,200 alleles per locus) and unpaired 10 kb ONT-like reads at 30x,
+      typed by the port's CLI (``--longReads ont2d --FASTQU ... --device
+      cuda``).  The path must launch K2 and K3 and run every NW job on the
+      card; each locus must call exactly its planted alleles with Q1 > 0.9.
+      K3 is then held against its plain version at each locus's C x R, as
+      in (d);
+  (i) the same recipe at a small size (backbone 6,000, 60 alleles, 2 kb
+      reads at 20x) on cuda against the CPU, as (f).
 
 The last two lines are the card's name and power limit, and
 {"ok": true, "device": {...}}; the line before them is the kernels' JSON
-record.  Nothing here imports jax or the JAX package.  The worlds are
-cached under build/chip_smoke_world/.
+record, one entry per kernel and main path (K3 runs on both), with the
+launches of that path's run.  Nothing here imports jax or the JAX package.
+The worlds are cached under build/chip_smoke_world/.  One kernel alone:
+
+    python -c "import chip_smoke as c; c.check_nw_long(128, 16384, 256, {})"
 """
 
 from __future__ import annotations
@@ -55,6 +74,15 @@ PAIR_RTOL, PAIR_ATOL = 1e-6, 1e-2
 Q_TOL = 1e-3
 Q1_MIN, C_MIN = 0.9, 2000       # stress_imgt.py's checks at IMGT scale
 SMALL_WORLD = {"n_alleles": 60, "coverage": 40.0}
+# (B, L, W) of phase (g) besides the shape of phase (h)'s NW calls; the
+# third is also held against the CPU, the last passes 2^31 pointer bytes
+NW_LONG_SHAPES = ((128, 16384, 256), (1024, 1400, 160), (256, 500, 100),
+                  (8192, 1100, 256))
+NW_LONG_CPU = NW_LONG_SHAPES[2]
+LONG_W = 256                    # the aligner's band in long-read mode
+REF_MAX_JOBS = 65536            # the reference aligner's jobs per NW call
+SMALL_LONG_WORLD = {"backbone": 6000, "n_alleles": 60, "coverage": 20.0,
+                    "read_length": 2000}
 
 
 def phase(name: str) -> None:
@@ -104,10 +132,12 @@ def toolchain() -> str:
     return smi
 
 
-def nw_world(rng, B: int, L: int, W: int):
+def nw_world(rng, B: int, L: int, W: int, ref_n_rate: float = 0.002):
     """Alignable reads cut from random refs with substitutions and indels,
-    plus N bases in reads and refs, suffix ref pads, uneven lengths and
-    one empty read."""
+    plus N bases in reads and in refs (at `ref_n_rate`), suffix ref pads,
+    uneven lengths and one empty read.  A ref N on a job's path leaves it
+    no alignment (score NEG), so long jobs take a rate that keeps most of
+    them alive."""
     import numpy as np
     refs = rng.integers(0, 4, (B, L + W)).astype(np.uint8)
     pos = W // 2 + rng.integers(-3, 4, B)
@@ -120,7 +150,7 @@ def nw_world(rng, B: int, L: int, W: int):
     sub = rng.random((B, L)) < 0.03
     reads[sub] = rng.integers(0, 4, int(sub.sum()))
     reads[rng.random((B, L)) < 0.003] = 4                  # N in reads
-    refs[rng.random((B, L + W)) < 0.002] = 4               # N in refs
+    refs[rng.random((B, L + W)) < ref_n_rate] = 4          # N in refs
     lens = rng.integers(L // 2, L + 1, B).astype(np.int64)
     lens[rng.random(B) < 0.5] = L
     lens[0] = 0
@@ -128,6 +158,24 @@ def nw_world(rng, B: int, L: int, W: int):
         refs[b, int(rng.integers(L // 2, L + W)):] = 4
     reads[col >= lens[:, None]] = 4                        # pad past len
     return reads, lens, refs
+
+
+def hold_nw(kernel: str, shape: str, got, others: dict) -> tuple:
+    """Fail unless the kernel's outputs `got` equal every plain version's in
+    `others` on the live rows (score > -1e29 in the first); returns (live
+    rows, max abs score error against the first)."""
+    import numpy as np
+    first = next(iter(others.values()))
+    live = first[0] > -1e29
+    names = ("score", "end_k", "end_state", "pointers")
+    for tag, other in others.items():
+        for name, a, b in zip(names, got, other):
+            if not np.array_equal(a[live], b[live]):
+                bad = np.nonzero((a[live] != b[live]).reshape(
+                    int(live.sum()), -1).any(axis=1))[0]
+                fail(f"{kernel} vs {tag} at {shape}: {name} differs on "
+                     f"{len(bad)} live rows (first {bad[:5].tolist()})")
+    return int(live.sum()), float(np.abs(got[0][live] - first[0][live]).max())
 
 
 def check_nw(B: int, record: dict) -> None:
@@ -148,35 +196,72 @@ def check_nw(B: int, record: dict) -> None:
     if B == NW_CPU_B:
         others["plain on the CPU"] = [t.numpy() for t in
                                       banded_nw_plain(*host, sc)]
-    live = others["plain on the card"][0] > -1e29
-    names = ("score", "end_k", "end_state", "pointers")
-    for tag, other in others.items():
-        for name, a, b in zip(names, got, other):
-            if not np.array_equal(a[live], b[live]):
-                bad = np.nonzero((a[live] != b[live]).reshape(
-                    int(live.sum()), -1).any(axis=1))[0]
-                fail(f"K1 vs {tag} at B={B}: {name} differs on "
-                     f"{len(bad)} live rows (first {bad[:5].tolist()})")
-    err = float(np.abs(got[0][live] - others["plain on the card"][0][live]
-                       ).max())
+    n_live, err = hold_nw("K1", f"B={B}", got, others)
     ms = cuda_ms(lambda: banded_nw_cuda(*args), reps=10)
     plain_ms = cuda_ms(lambda: banded_nw_plain(*args), reps=1)
     gcells = B * NW_L * NW_W / (ms * 1e-3) / 1e9
     print(f"K1 B={B} L={NW_L} W={NW_W}: bit-identical to the "
-          f"{' and '.join(others)} on {int(live.sum())}/{B} live rows; "
+          f"{' and '.join(others)} on {n_live}/{B} live rows; "
           f"kernel {ms:.4f} ms ({gcells:.2f} Gcells/s), plain {plain_ms:.4f} "
           f"ms")
     if B == NW_BATCHES[0]:
         record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
-def check_pair(record: dict) -> None:
+def timed(fn):
+    """(fn(), device ms of that one call by CUDA events)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_nw_long(B: int, L: int, W: int, record: dict) -> None:
+    """K2 against the plain version on the card (and, at NW_LONG_CPU, on
+    the CPU).  The plain version's row loop takes seconds at the long
+    shapes, so its one checked call is also its timed one."""
+    import numpy as np
+    import torch
+    from hla_la_tpu_torch.ops.banded_nw import DEFAULT_SCORING as sc
+    from hla_la_tpu_torch.ops.banded_nw import banded_nw_plain
+    from hla_la_tpu_torch.ops.cuda_nw_long import banded_nw_long_cuda
+
+    # K1's world has 0.27 ref N per job; so has this one at every length
+    reads, lens, refs = nw_world(np.random.default_rng(B * L + W), B, L, W,
+                                 ref_n_rate=0.27 / (L + W))
+    host = [torch.from_numpy(a) for a in (reads, lens, refs)]
+    args = tuple(t.cuda() for t in host) + (sc,)
+    got = [t.cpu().numpy() for t in banded_nw_long_cuda(*args)]
+    sync()
+    plain, plain_ms = timed(lambda: banded_nw_plain(*args))
+    others = {"plain on the card": [t.cpu().numpy() for t in plain]}
+    del plain
+    if (B, L, W) == NW_LONG_CPU:
+        others["plain on the CPU"] = [t.numpy() for t in
+                                      banded_nw_plain(*host, sc)]
+    shape = f"B={B} L={L} W={W}"
+    n_live, err = hold_nw("K2", shape, got, others)
+    ms = cuda_ms(lambda: banded_nw_long_cuda(*args), reps=5)
+    gcells = B * L * W / (ms * 1e-3) / 1e9
+    print(f"K2 {shape}: bit-identical to the {' and '.join(others)} on "
+          f"{n_live}/{B} live rows; kernel {ms:.4f} ms ({gcells:.2f} "
+          f"Gcells/s), plain {plain_ms:.4f} ms ({B * (L + 1) * W / 1e6:.1f} "
+          f"MB of pointers)")
+    if (B, L, W) == NW_LONG_SHAPES[0]:
+        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def check_pair(C: int, R: int, record: dict) -> None:
     import numpy as np
     import torch
     from hla_la_tpu_torch.ops.cuda_pair import pair_ll_diff_cuda
     from hla_la_tpu_torch.ops.pair_ll import LOG_HALF, pair_ll_diff_plain
 
-    L = np.random.default_rng(0).normal(-40.0, 8.0, (PAIR_C, PAIR_R)
+    L = np.random.default_rng(0).normal(-40.0, 8.0, (C, R)
                                         ).astype(np.float32)
     Ld = torch.from_numpy(L).cuda()
     rowsum = L.astype(np.float64).sum(axis=1)
@@ -198,14 +283,14 @@ def check_pair(record: dict) -> None:
     sync()
     err = np.abs(got - want)
     if not np.allclose(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL):
-        fail(f"K3 vs plain at C={PAIR_C} R={PAIR_R}: max abs err "
+        fail(f"K3 vs plain at C={C} R={R}: max abs err "
              f"{err.max():.4g} beyond rtol={PAIR_RTOL} atol={PAIR_ATOL}")
     if not np.array_equal(got, got.T):
         fail("K3 output is not symmetric")
     ms = cuda_ms(lambda: pair_ll_diff_cuda(Ld), reps=3)
     plain_ms = cuda_ms(lambda: pair_ll_diff_plain(Ld), reps=1)
-    gcells = PAIR_C * PAIR_C * PAIR_R / (ms * 1e-3) / 1e9
-    print(f"K3 C={PAIR_C} R={PAIR_R} (kernel pads to {rpad}, plain to "
+    gcells = C * C * R / (ms * 1e-3) / 1e9
+    print(f"K3 C={C} R={R} (kernel pads to {rpad}, plain to "
           f"{plain[1]}): within rtol={PAIR_RTOL} atol={PAIR_ATOL} of plain "
           f"(max abs err {err.max():.4g}), bit-identical reruns; kernel "
           f"{ms:.3f} ms ({gcells:.1f} Gcells/s over the full C^2 R), plain "
@@ -237,54 +322,74 @@ def run_port(device: str, world, out_dir: str) -> dict:
     counters are zeroed just before the run and read just after it."""
     from hla_la_tpu_torch.cli import main as port_main
     from hla_la_tpu_torch.ops.cuda_nw import banded_nw_cuda
+    from hla_la_tpu_torch.ops.cuda_nw_long import banded_nw_long_cuda
     from hla_la_tpu_torch.ops.cuda_pair import pair_ll_diff_cuda
 
     shutil.rmtree(out_dir, ignore_errors=True)
-    argv = ["--action", "HLA", "--FASTQ1", world.fastq1, "--FASTQ2",
-            world.fastq2, "--graph", world.graph, "--sampleID", "S1",
-            "--outputDirectory", out_dir, "--device", device]
+    argv = ["--action", "HLA", *world.cli_args(), "--graph", world.graph,
+            "--sampleID", "S1", "--outputDirectory", out_dir, "--device",
+            device]
     log = io.StringIO()
-    banded_nw_cuda.launches = 0
-    pair_ll_diff_cuda.launches = 0
+    kernels = {"K1": banded_nw_cuda, "K2": banded_nw_long_cuda,
+               "K3": pair_ll_diff_cuda}
+    for fn in kernels.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(_Tee(sys.stderr, log)):
         rc = port_main(argv)
     if device == "cuda":
         sync()
     wall = time.perf_counter() - t0
-    launches = {"K1": banded_nw_cuda.launches, "K3": pair_ll_diff_cuda.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
     if rc != 0:
         fail(f"port run on {device} failed (rc {rc})")
     text = log.getvalue()
-    m_al = re.search(r"aligned (\d+)/(\d+) pairs .* in ([0-9.]+) s on "
-                     r"\S+ \(([0-9.]+) reads/s\)", text)
+    m_al = re.search(r"aligned (\d+)/(\d+) pairs \+ (\d+)/(\d+) unpaired "
+                     r"in ([0-9.]+) s on \S+ \(([0-9.]+) reads/s\)", text)
     m_ty = re.search(r"typed (\d+) loci in ([0-9.]+) s", text)
+    m_jobs = re.search(r"n_chain_extensions: (\d+)", text)
+    m_dev = re.search(rf"nw_jobs_on_{device}: (\d+)", text)
     loci = re.findall(r"  (\S+): (\d+) clusters x (\d+) reads", text)
-    if not (m_al and m_ty and loci):
+    if not (m_al and m_ty and m_jobs and loci):
         fail("port log lacks the align/type timing lines")
+    nw_jobs = int(m_jobs.group(1))
+    if not (m_dev and int(m_dev.group(1)) == nw_jobs):
+        fail(f"not every one of the {nw_jobs} NW jobs ran on {device}")
     hla = os.path.join(out_dir, "hla")
     return {"dir": out_dir, "launches": launches, "wall_s": wall,
             "bestguess": read_table(os.path.join(hla, "R1_bestguess.txt")),
-            "align_s": float(m_al.group(3)),
-            "reads_per_s": float(m_al.group(4)),
-            "pairs": int(m_al.group(2)), "type_s": float(m_ty.group(2)),
+            "align_s": float(m_al.group(5)),
+            "reads_per_s": float(m_al.group(6)),
+            "pairs": int(m_al.group(2)), "unpaired": int(m_al.group(4)),
+            "nw_jobs": nw_jobs, "type_s": float(m_ty.group(2)),
             "loci": {lc: (int(c), int(r)) for lc, c, r in loci}}
 
 
-def check_truth(res: dict, world, c_min: int) -> None:
+def check_launched(res: dict, names) -> None:
+    for name in names:
+        if res["launches"][name] <= 0:
+            fail(f"the main path never launched {name}")
+
+
+def check_truth(res: dict, world, c_min: int, exact: bool = False) -> None:
     """stress_imgt.py's checks: each planted allele is in a called cluster
     of its locus, Q1 > 0.9, at least `c_min` clusters, and the pair dump
-    holds all C(C+1)/2 pairs."""
+    holds all C(C+1)/2 pairs.  With `exact`, the first allele of each
+    called cluster must be a planted one, as tests/test_long_reads.py
+    holds its long-read calls."""
     rows = res["bestguess"][1:]
     for locus, planted in world.truth.items():
         mine = [r for r in rows if r[0] == locus]
         if len(mine) != 2:
             fail(f"locus {locus}: {len(mine)} bestguess rows")
-        called = [set(r[2].split(";")) for r in mine]
+        called = [r[2].split(";") for r in mine]
         for allele in planted:
             if not any(allele in c for c in called):
                 fail(f"locus {locus}: planted {allele} not called "
                      f"({[r[2][:40] for r in mine]})")
+        if exact and sorted(c[0] for c in called) != sorted(planted):
+            fail(f"locus {locus}: called {[c[0] for c in called]}, "
+                 f"planted {planted}")
         q1 = [float(r[3]) for r in mine]
         if not all(math.isfinite(q) and Q1_MIN < q <= 1.0 for q in q1):
             fail(f"locus {locus}: Q1 {q1} outside ({Q1_MIN}, 1]")
@@ -296,6 +401,28 @@ def check_truth(res: dict, world, c_min: int) -> None:
             n_lines = sum(1 for _ in fh)
         if n_lines != C * (C + 1) // 2 + 1:
             fail(f"locus {locus}: pair dump has {n_lines} lines for C={C}")
+
+
+def report_run(tag: str, res: dict) -> None:
+    print(f"{tag}: align {res['align_s']:.3f} s ({res['reads_per_s']:.1f} "
+          f"reads/s, {res['pairs']} pairs + {res['unpaired']} unpaired, "
+          f"{res['nw_jobs']} NW jobs), type {res['type_s']:.3f} s, whole "
+          f"CLI {res['wall_s']:.3f} s; launches {res['launches']}")
+    for lc, (c, r) in res["loci"].items():
+        print(f"  locus {lc}: C={c} clusters x R={r} reads")
+
+
+def compare_devices(world, tag: str, exact: bool = False) -> None:
+    """The port's CLI on cuda against the port's CLI on the CPU; the cuda
+    run's calls are held to the planted alleles as check_truth does."""
+    runs = {dev: run_port(dev, world, os.path.join(WORLD_DIR, "runs",
+                                                   f"{tag}_{dev}"))
+            for dev in ("cuda", "cpu")}
+    q_err = check_same_run(runs["cuda"], runs["cpu"])
+    check_truth(runs["cuda"], world, 0, exact)
+    print(f"{tag}: cuda and CPU runs agree (coverage track and calls "
+          f"identical, max |dQ| {q_err:.3g}); cuda {runs['cuda']['wall_s']:.3f}"
+          f" s, CPU {runs['cpu']['wall_s']:.3f} s")
 
 
 def check_same_run(got: dict, want: dict) -> float:
@@ -333,8 +460,11 @@ def main() -> int:
         return 1
     from hla_la_tpu_torch import _build
     from hla_la_tpu_torch.device import resolve
-    from hla_la_tpu_torch.sim import typing_world
+    from hla_la_tpu_torch.models.aligner import jobs_per_call
+    from hla_la_tpu_torch.sim import (LONG_READ_LENGTH, long_read_world,
+                                      typing_world)
     resolve("cuda")
+    t_start = time.perf_counter()
 
     phase("(a) toolchain")
     smi = toolchain()
@@ -346,12 +476,17 @@ def main() -> int:
           f"(nvcc {lib.build_s:.1f} s)")
     print(lib.log.strip())
 
-    nw = {"name": "banded_nw", "route": "cuda",
+    short, long_ = "short reads, phase (e)", "long reads, phase (h)"
+    nw = {"name": "banded_nw", "path": short, "route": "cuda",
           "source": "hla_la_tpu_torch/csrc/banded_nw.cu",
           "replaces": "hla_la_tpu/ops/pallas_nw.py:31"}
-    pair = {"name": "pair_ll_diff", "route": "cuda",
+    nw_long = {"name": "banded_nw_long", "path": long_, "route": "cuda",
+               "source": "hla_la_tpu_torch/csrc/banded_nw_long.cu",
+               "replaces": "hla_la_tpu/ops/pallas_nw.py:281"}
+    pair = {"name": "pair_ll_diff", "path": short, "route": "cuda",
             "source": "hla_la_tpu_torch/csrc/pair_ll.cu",
             "replaces": "hla_la_tpu/ops/pallas_pair.py:100"}
+    pair_long = {**pair, "path": long_}
 
     phase("(c) K1 banded NW vs plain")
     for B in NW_BATCHES:
@@ -359,7 +494,7 @@ def main() -> int:
     sync()
 
     phase("(d) K3 pair reduction vs plain")
-    check_pair(pair)
+    check_pair(PAIR_C, PAIR_R, pair)
     sync()
 
     phase("(e) end to end: the port's CLI on cuda, IMGT-scale world")
@@ -368,35 +503,51 @@ def main() -> int:
     print(f"world ready in {time.perf_counter() - t0:.1f} s: {world.graph}; "
           f"planted {world.truth}")
     res = run_port("cuda", world, os.path.join(WORLD_DIR, "runs", "cuda"))
-    for k, n in res["launches"].items():
-        if n <= 0:
-            fail(f"the main path never launched {k}")
+    check_launched(res, ("K1", "K3"))
     check_truth(res, world, C_MIN)
     print(f"calls hold the planted alleles: "
           f"{[r[:4] for r in res['bestguess'][1:]]}")
-    for lc, (c, r) in res["loci"].items():
-        print(f"locus {lc}: C={c} clusters x R={r} reads")
-    print(f"port on cuda: align {res['align_s']:.3f} s "
-          f"({res['reads_per_s']:.1f} reads/s, {res['pairs']} pairs), "
-          f"type {res['type_s']:.3f} s, whole CLI {res['wall_s']:.3f} s; "
-          f"launches {res['launches']}")
+    report_run("port on cuda", res)
     nw["launches"] = res["launches"]["K1"]
     pair["launches"] = res["launches"]["K3"]
     sync()
 
     phase("(f) small world: the port's CLI on cuda vs on the CPU")
-    small = typing_world(WORLD_DIR, **SMALL_WORLD)
-    runs = {dev: run_port(dev, small, os.path.join(WORLD_DIR, "runs",
-                                                   f"small_{dev}"))
-            for dev in ("cuda", "cpu")}
-    q_err = check_same_run(runs["cuda"], runs["cpu"])
-    check_truth(runs["cuda"], small, 0)
-    print(f"small world: cuda and CPU runs agree (coverage track and calls "
-          f"identical, max |dQ| {q_err:.3g}); cuda {runs['cuda']['wall_s']:.3f}"
-          f" s, CPU {runs['cpu']['wall_s']:.3f} s")
+    compare_devices(typing_world(WORLD_DIR, **SMALL_WORLD), "small")
     sync()
 
-    print(json.dumps({"kernels": [nw, pair]}))
+    phase("(g) K2 long-read banded NW vs plain")
+    path_shape = (jobs_per_call(LONG_READ_LENGTH, LONG_W, REF_MAX_JOBS),
+                  LONG_READ_LENGTH, LONG_W)
+    for B, L, W in (*NW_LONG_SHAPES, path_shape):
+        check_nw_long(B, L, W, nw_long)
+    sync()
+
+    phase("(h) end to end on long reads: the port's CLI on cuda")
+    t0 = time.perf_counter()
+    world = long_read_world(WORLD_DIR)
+    print(f"world ready in {time.perf_counter() - t0:.1f} s: {world.graph}; "
+          f"planted {world.truth}")
+    res = run_port("cuda", world, os.path.join(WORLD_DIR, "runs",
+                                               "long_cuda"))
+    check_launched(res, ("K2", "K3"))
+    check_truth(res, world, 0, exact=True)
+    print(f"calls are exactly the planted alleles: "
+          f"{[r[:4] for r in res['bestguess'][1:]]}")
+    report_run("port on cuda, long reads", res)
+    nw_long["launches"] = res["launches"]["K2"]
+    pair_long["launches"] = res["launches"]["K3"]
+    for C, R in sorted(res["loci"].values(), key=lambda cr: cr[1]):
+        check_pair(C, R, pair_long)     # the record keeps the largest R
+    sync()
+
+    phase("(i) small long-read world: the port's CLI on cuda vs on the CPU")
+    compare_devices(long_read_world(WORLD_DIR, **SMALL_LONG_WORLD),
+                    "small long-read", exact=True)
+    sync()
+
+    print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [nw, pair, nw_long, pair_long]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

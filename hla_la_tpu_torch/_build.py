@@ -2,7 +2,8 @@
 
 The sources are ``hla_la_tpu_torch/csrc/*.cu``, each with a plain C entry
 point that launches on the caller's stream and returns
-``cudaGetLastError()``.  They are compiled for Hopper (``sm_90a``) into one
+``cudaGetLastError()``.  They are compiled for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and linked into one
 shared library under ``build/hla_la_tpu_torch/`` at the repository root
 (a per-user cache when the package is installed, see ``build_dir``), on
 first use, keyed on a hash of the sources and flags, so an edit rebuilds and
@@ -27,8 +28,9 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 # -Xptxas -v: the build log lists each kernel's registers, shared memory
 # and spills
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point; all of them return int
@@ -36,6 +38,9 @@ _ENTRY_POINTS = {
     "hla_banded_nw_forward": [_vp, _vp, _vp, _int, _int, _int,
                               _float, _float, _float, _float,
                               _vp, _vp, _vp, _vp, _vp],
+    "hla_banded_nw_long_forward": [_vp, _vp, _vp, _int, _int, _int,
+                                   _float, _float, _float, _float,
+                                   _vp, _vp, _vp, _vp, _vp],
     "hla_pair_ll_diff": [_vp, _int, _int, _vp, _vp],
     "hla_pair_ll_read_chunk": [],
 }
@@ -93,6 +98,20 @@ def build_dir(pkg_dir: Path = PKG_DIR) -> Path:
     return Path(cache) / "hla_la_tpu_torch"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run `cmds` all at once and wait for every one; their joined output,
+    or raise with the output of the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{text}")
+    return "".join(outs)
+
+
 def build() -> KernelLibrary:
     """Compile (if needed) and load the kernel library."""
     out_dir = build_dir()
@@ -102,17 +121,20 @@ def build() -> KernelLibrary:
     if not out.exists():
         nvcc = find_nvcc()
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, _sources())]
+        stem = f"{out.with_suffix('')}.{os.getpid()}"
+        objs = [f"{stem}.{src.stem}.o" for src in _sources()]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        try:
+            log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                            for obj, src in zip(objs, _sources())])
+            log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o",
+                              f"{stem}.tmp", *objs]])
+        finally:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
         build_s = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
-        os.replace(tmp, out)
+        os.replace(f"{stem}.tmp", out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _ENTRY_POINTS.items():
         fn = getattr(lib, name)

@@ -1,15 +1,19 @@
 """Command-line interface of the port: ``--action HLA`` on paired short
-reads, from ``--FASTQ1/--FASTQ2`` or from a ``--BAM`` (or CRAM with
-``--ref``), with the device work on ``--device`` (default ``cuda``; there is
-no silent fallback to the CPU).
+reads from ``--FASTQ1/--FASTQ2``, unpaired reads from ``--FASTQU``, or reads
+extracted from a ``--BAM`` (or CRAM with ``--ref``), and on long reads with
+``--longReads ont2d|pacbio``, with the device work on ``--device`` (default
+``cuda``; there is no silent fallback to the CPU).
 
-Read extraction, the knownReferences match and FASTQ pairing are the
-reference CLI's own helpers (``hla_la_tpu/cli.py:162-310``); reads of a BAM
-whose mate was not extracted are typed as unpaired, as there.  Not ported
-yet: other actions (they exit non-zero), long reads and unpaired FASTQ
-input (``--longReads`` and ``--FASTQU`` are not options).
+The input rules are the reference CLI's (``hla_la_tpu/cli.py:199-269``),
+with its own helpers for read extraction, the knownReferences match, FASTQ
+pairing and the 50 kb split of long reads: reads of a BAM whose mate was
+not extracted are typed as unpaired; in long-read mode every pair is
+flattened into unpaired reads.  Not ported yet: other actions (they exit
+non-zero).
 
   python -m hla_la_tpu_torch --action HLA --FASTQ1 R_1.fq --FASTQ2 R_2.fq \\
+      --graph /path/to/graphdir --sampleID S1 --workingDir out/ --device cuda
+  python -m hla_la_tpu_torch --action HLA --FASTQU long.fq --longReads ont2d \\
       --graph /path/to/graphdir --sampleID S1 --workingDir out/ --device cuda
 """
 
@@ -27,9 +31,12 @@ def main(argv=None) -> int:
     ap.add_argument("--BAM")
     ap.add_argument("--FASTQ1")
     ap.add_argument("--FASTQ2")
+    ap.add_argument("--FASTQU")
     ap.add_argument("--graph", help="graph package directory")
     ap.add_argument("--sampleID", default="sample")
     ap.add_argument("--workingDir", default=".")
+    ap.add_argument("--longReads", default="",
+                    choices=["", "ont2d", "pacbio"])
     ap.add_argument("--outputDirectory", default=None)
     ap.add_argument("--moreReferencesDir", default=None)
     ap.add_argument("--ref", help="reference genome FASTA (required to "
@@ -44,22 +51,56 @@ def main(argv=None) -> int:
 
 
 def _read_input(args, pkg):
-    """(pairs, unpaired) from --FASTQ1/--FASTQ2, or extracted from --BAM
-    with the reads whose mate was not extracted as unpaired
-    (``hla_la_tpu/cli.py:199-257``, short reads only)."""
+    """(pairs, unpaired) from --FASTQ1/--FASTQ2 and --FASTQU, or extracted
+    from --BAM with the reads whose mate was not extracted as unpaired; in
+    long-read mode every pair is flattened into unpaired reads and reads
+    over 50 kb are split (``hla_la_tpu/cli.py:199-269``)."""
+    from hla_la_tpu.cli import _split_long_reads
+    from hla_la_tpu.io.fastq import read_fastq
+    from hla_la_tpu.models.pipeline import pair_up_fastq
+    from hla_la_tpu.utils.config import TyperConfig
+    from hla_la_tpu.utils.timing import log_progress
+
+    for p in (args.BAM, args.FASTQ1, args.FASTQ2, args.FASTQU, args.ref):
+        if p and not os.path.exists(p):
+            raise SystemExit(f"input file not found: {p}")
+    pairs, unpaired = [], []
+    if args.BAM:
+        pairs, unpaired = _extract_bam(args, pkg)
+    else:
+        if args.FASTQ1 and args.FASTQ2:
+            pairs = pair_up_fastq(args.FASTQ1, args.FASTQ2)
+        if args.FASTQU:
+            unpaired = list(read_fastq(args.FASTQU))
+    if args.longReads:
+        unpaired += [r for p in pairs for r in p]
+        pairs = []
+        unpaired = _split_long_reads(unpaired)
+    if not pairs and not unpaired:
+        raise SystemExit("no input reads (--BAM or --FASTQ1/--FASTQ2/"
+                         "--FASTQU)")
+    if unpaired and not args.longReads:
+        min_len = TyperConfig().min_alignment_length_unpaired
+        n_short = sum(len(r.seq) < min_len for r in unpaired)
+        if n_short > len(unpaired) // 2:
+            log_progress(
+                f"WARNING: {n_short}/{len(unpaired)} unpaired reads are "
+                f"shorter than the {min_len}bp unpaired minimum "
+                f"(HLATyper.cpp:1032) and will produce no typing "
+                f"observations — short reads must be PAIRED "
+                f"(--FASTQ1/--FASTQ2); use --longReads for long-read "
+                f"input")
+    return pairs, unpaired
+
+
+def _extract_bam(args, pkg):
+    """(pairs, unpaired) extracted from --BAM by the knownReferences
+    match, as the reference CLI does (``hla_la_tpu/cli.py:203-239``)."""
     from hla_la_tpu.cli import _regions_from_spec
     from hla_la_tpu.io.bam import BamReader, bam_to_fastq_pairs, \
         extract_reads, is_cram
-    from hla_la_tpu.models.pipeline import pair_up_fastq
     from hla_la_tpu.utils.timing import log_progress
 
-    for p in (args.BAM, args.FASTQ1, args.FASTQ2, args.ref):
-        if p and not os.path.exists(p):
-            raise SystemExit(f"input file not found: {p}")
-    if not args.BAM:
-        if not (args.FASTQ1 and args.FASTQ2):
-            raise SystemExit("no input reads (--BAM or --FASTQ1/--FASTQ2)")
-        return pair_up_fastq(args.FASTQ1, args.FASTQ2), []
     log_progress(f"extracting reads from {args.BAM}")
     cram_reference = None
     if is_cram(args.BAM):
@@ -103,10 +144,8 @@ def action_hla(args) -> int:
                                                    args.sampleID)
     os.makedirs(out_dir, exist_ok=True)
     pairs, unpaired = _read_input(args, pkg)
-    if not pairs and not unpaired:
-        raise SystemExit("no reads in the input")
     cfg = RunConfig(graph_dir=args.graph, sample_id=args.sampleID,
-                    working_dir=args.workingDir)
+                    working_dir=args.workingDir, long_reads=args.longReads)
     res = run_hla_typing(pkg, pairs=pairs, unpaired=unpaired,
                          output_dir=out_dir, cfg=cfg, device=args.device)
     log_progress(f"typing complete: {len(res.results)} loci -> "

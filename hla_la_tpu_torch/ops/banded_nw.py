@@ -5,10 +5,14 @@
 (``banded_nw_forward`` / ``make_jax_banded_nw``): reads [B, L] u8 codes 0-3
 (>= 4 is N or pad), read_lens [B], refs [B, L + W] u8 window codes ->
 (score [B] f32, end_k [B] i32, end_state [B] i32, pointers [B, L + 1, W] u8).
-A CUDA tensor goes to kernel K1 (``ops/cuda_nw.py``); a CPU tensor goes to
+A CUDA tensor goes to a kernel by its band: W <= 32 to K1 (``ops/cuda_nw.py``,
+one warp per job), W > 32 to K2 (``ops/cuda_nw_long.py``, one block per job,
+for long reads); each raises outside its range.  A CPU tensor goes to
 ``banded_nw_plain``, a PyTorch transcription of ``make_jax_banded_nw``
-(``hla_la_tpu/ops/banded_nw.py:183-284``).  The numpy backtrace, the native
-host code and the scoring dataclass are the reference's own.
+(``hla_la_tpu/ops/banded_nw.py:183-284``).  K1 and K2 have one contract, so
+``banded_nw_plain`` is the plain version of both, for every W.  The numpy
+backtrace, the native host code and the scoring dataclass are the
+reference's own.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import torch
 from hla_la_tpu.ops.banded_nw import NWScoring
 
 from ..device import on_card, resolve, to_device
+from .cuda_nw import MAX_W as K1_MAX_W
 from .cuda_nw import banded_nw_cuda
+from .cuda_nw_long import banded_nw_long_cuda
 
 NEG = -1e30
 
@@ -133,5 +139,7 @@ def banded_nw_forward_torch(reads, read_lens, refs, sc: dict,
 
 def _forward(reads, read_lens, refs, sc):
     if on_card(reads):
-        return banded_nw_cuda(reads, read_lens, refs, sc)
+        if refs.shape[1] - reads.shape[1] <= K1_MAX_W:
+            return banded_nw_cuda(reads, read_lens, refs, sc)
+        return banded_nw_long_cuda(reads, read_lens, refs, sc)
     return banded_nw_plain(reads, read_lens, refs, sc)

@@ -1,6 +1,7 @@
-"""Guards on the port's boundaries: it never imports jax, its typer's
-per-locus step stays the reference's text, it never falls back from the
-card to the CPU, and a CUDA tensor never reaches a plain version."""
+"""Guards on the port's boundaries: it never imports jax (on the short-
+and the long-read path), its typer's per-locus step stays the reference's
+text, it never falls back from the card to the CPU, and a CUDA tensor
+never reaches a plain version."""
 
 import ast
 import difflib
@@ -23,6 +24,7 @@ from hla_la_tpu_torch.models.typer import BACKEND, TorchHLATyper
 from hla_la_tpu_torch.ops import banded_nw as port_nw
 from hla_la_tpu_torch.ops import pair_ll as port_pair
 from hla_la_tpu_torch.ops.cuda_nw import banded_nw_cuda
+from hla_la_tpu_torch.ops.cuda_nw_long import banded_nw_long_cuda
 from hla_la_tpu_torch.ops.cuda_pair import pair_ll_diff_cuda
 
 torch.set_num_threads(1)
@@ -38,6 +40,7 @@ _NO_JAX_SLICE = textwrap.dedent("""
     from hla_la_tpu_torch.models.pipeline import run_hla_typing
     from hla_la_tpu.sim.graph_sim import simulate_prg_package
     from hla_la_tpu.sim.read_sim import ReadSimulator
+    from hla_la_tpu.utils.config import RunConfig
     rng = np.random.default_rng(31)
     sim = simulate_prg_package(rng, backbone_length=1200, n_haplotypes=4)
     with tempfile.TemporaryDirectory() as td:
@@ -51,7 +54,17 @@ _NO_JAX_SLICE = textwrap.dedent("""
         fq = [(p.r1.to_fastq(), p.r2.to_fastq()) for p in pairs]
         res = run_hla_typing(pkg, pairs=fq, output_dir=td + "/out",
                              device="cpu")
+        long_reads = []
+        for h in (1, 2):
+            seq, levels = sim.linearized(h)
+            long_reads += rs.simulate_unpaired_from_string(
+                seq, levels, 3.0, read_length=1100, name_prefix=f"lr{h}")
+        res_long = run_hla_typing(
+            pkg, unpaired=[r.to_fastq() for r in long_reads],
+            output_dir=td + "/out_long", device="cpu",
+            cfg=RunConfig(long_reads="ont2d"))
     assert res.results and res.n_pairs_aligned > 0
+    assert res_long.results
     assert [m for m in sys.modules if m == "jax" or m.startswith("jax.")] \\
         == ["jax"] and sys.modules["jax"] is None
     print("SLICE_OK", len(res.results))
@@ -103,8 +116,8 @@ def test_resolve_cuda_raises_without_a_card(monkeypatch):
     assert torch.get_float32_matmul_precision() == "highest"
 
 
-def _fake(device_type):
-    return SimpleNamespace(device=torch.device(device_type))
+def _fake(device_type, shape=(2, 8)):
+    return SimpleNamespace(device=torch.device(device_type), shape=shape)
 
 
 def test_cuda_tensors_never_reach_a_plain_version(monkeypatch):
@@ -117,15 +130,24 @@ def test_cuda_tensors_never_reach_a_plain_version(monkeypatch):
         return fn
 
     monkeypatch.setattr(port_nw, "banded_nw_cuda", record("nw_kernel"))
+    monkeypatch.setattr(port_nw, "banded_nw_long_cuda",
+                        record("nw_long_kernel"))
     monkeypatch.setattr(port_nw, "banded_nw_plain", record("nw_plain"))
     monkeypatch.setattr(port_pair, "pair_ll_diff_cuda", record("pair_kernel"))
     monkeypatch.setattr(port_pair, "pair_ll_diff_plain", record("pair_plain"))
-    cuda = _fake("cuda")
-    assert port_nw._forward(cuda, cuda, cuda, {}) == "nw_kernel"
+    cuda, cuda_lens = _fake("cuda"), _fake("cuda", (2,))
+    # refs [B, L + W]: W = 32 is K1's widest band, W = 33 K2's narrowest
+    k1_refs, k2_refs = _fake("cuda", (2, 40)), _fake("cuda", (2, 41))
+    assert port_nw._forward(cuda, cuda_lens, k1_refs, {}) == "nw_kernel"
+    assert port_nw._forward(cuda, cuda_lens, k2_refs, {}) == "nw_long_kernel"
+    assert port_nw._forward(cuda, cuda_lens, _fake("cuda", (2, 264)),
+                            {}) == "nw_long_kernel"
     assert port_pair._pair_ll_diff(cuda) == "pair_kernel"
-    assert calls == ["nw_kernel", "pair_kernel"]
+    assert calls == ["nw_kernel", "nw_long_kernel", "nw_long_kernel",
+                     "pair_kernel"]
     cpu = _fake("cpu")
-    assert port_nw._forward(cpu, cpu, cpu, {}) == "nw_plain"
+    assert port_nw._forward(cpu, cpu, _fake("cpu", (2, 264)),
+                            {}) == "nw_plain"
     assert port_pair._pair_ll_diff(cpu) == "pair_plain"
     with pytest.raises(ValueError):
         port_nw._forward(_fake("meta"), None, None, {})
@@ -143,8 +165,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         banded_nw_cuda(u8, torch.zeros(2), torch.zeros((2, 36),
                                                        dtype=torch.uint8), {})
     with pytest.raises(ValueError, match="CUDA"):
+        banded_nw_long_cuda(u8, torch.zeros(2),
+                            torch.zeros((2, 260), dtype=torch.uint8), {})
+    with pytest.raises(ValueError, match="CUDA"):
         pair_ll_diff_cuda(torch.zeros((3, 5)))
     assert banded_nw_cuda.launches == 0 and pair_ll_diff_cuda.launches == 0
+    assert banded_nw_long_cuda.launches == 0
 
 
 def test_kernels_build_inside_the_checkout_or_a_user_cache(tmp_path,
@@ -157,6 +183,24 @@ def test_kernels_build_inside_the_checkout_or_a_user_cache(tmp_path,
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
     assert _build.build_dir(installed) == tmp_path / "cache" / \
         "hla_la_tpu_torch"
+
+
+def test_failed_build_raises_and_leaves_no_objects(tmp_path, monkeypatch):
+    """Every source compiles at once; when one fails, the build raises with
+    that compiler's output and removes the objects of the others."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(textwrap.dedent("""\
+        #!/bin/sh
+        for a; do case "$prev" in -o) out=$a;; esac; prev=$a; done
+        : > "$out"
+        case "$*" in *pair_ll.cu*) echo "pair_ll.cu: error"; exit 2;; esac
+        """))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "out")
+    with pytest.raises(RuntimeError, match="pair_ll.cu: error"):
+        _build.build()
+    assert list((tmp_path / "out").iterdir()) == []
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

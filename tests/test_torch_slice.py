@@ -21,8 +21,10 @@ from hla_la_tpu.sim.graph_sim import simulate_prg_package
 from hla_la_tpu.sim.read_sim import ReadSimulator
 from hla_la_tpu_torch import sim as port_sim
 from hla_la_tpu_torch.cli import main as port_main
+from hla_la_tpu_torch.models import aligner as port_aligner
 from hla_la_tpu_torch.models.aligner import TorchReadAligner
 from hla_la_tpu_torch.models.pipeline import run_hla_typing
+from hla_la_tpu_torch.ops import banded_nw as port_nw
 from hla_la_tpu_torch.profile_e2e import device_summary
 
 torch.set_num_threads(1)
@@ -67,17 +69,86 @@ def test_aligner_field_identical_to_xla_scan_and_host(align_world):
             _fields_equal(x.chain2, y.chain2)
 
 
-def test_aligner_long_band_runs_host_nw(align_world):
-    """A band wider than K1's 32 goes to the inherited host forward."""
+def test_aligner_long_band_runs_plain_nw(align_world, monkeypatch):
+    """A band wider than K1's 32 runs the plain version on the CPU (K2's
+    on the card) and aligns as the host forward does."""
     pkg, fq = align_world
+    bands = []
+    plain = port_nw.banded_nw_plain
+
+    def recording(reads, read_lens, refs, sc):
+        bands.append(refs.shape[1] - reads.shape[1])
+        return plain(reads, read_lens, refs, sc)
+
+    monkeypatch.setattr(port_nw, "banded_nw_plain", recording)
     port = TorchReadAligner(pkg, device="cpu", band=48)
     got = port.align_pairs(fq[:40], insert_mean=260, insert_sd=25)
     want = ReadAligner(pkg, band=48).align_pairs(fq[:40], insert_mean=260,
                                                  insert_sd=25)
-    assert port.host_nw_batches > 0
+    assert bands and set(bands) == {48}
+    assert port.stats.extras["nw_jobs_on_cpu"] == \
+        port.stats.n_chain_extensions
     assert [x.read_id for x in got] == [y.read_id for y in want]
     for x, y in zip(got, want):
+        assert x.mapq == y.mapq
         _fields_equal(x.chain1, y.chain1)
+        _fields_equal(x.chain2, y.chain2)
+
+
+def _count_nw_calls(aligner, monkeypatch):
+    """Jobs of each NW call the aligner makes from now on."""
+    calls = []
+    run_nw = aligner._run_nw
+
+    def counting(reads_arr, lens_arr, refs_arr):
+        calls.append(len(reads_arr))
+        return run_nw(reads_arr, lens_arr, refs_arr)
+
+    monkeypatch.setattr(aligner, "_run_nw", counting)
+    return calls
+
+
+def _budget_of_jobs(monkeypatch, n_jobs, L, W=32):
+    monkeypatch.setattr(port_aligner, "NW_POINTER_BUDGET",
+                        n_jobs * (L + 1) * W)
+
+
+@pytest.mark.parametrize("path", ["soa", "arrays"])
+def test_slicing_by_pointer_bytes_keeps_paired_alignments(align_world,
+                                                          monkeypatch, path):
+    """Both of the reference's paired slicing entry points (the flat
+    _align_jobs_soa and, when it is not available, _align_jobs_arrays) give
+    the same pairs under a budget of five jobs per NW call."""
+    pkg, fq = align_world
+    fq = fq[:20]
+    want = TorchReadAligner(pkg, device="cpu").align_pairs(
+        fq, insert_mean=260, insert_sd=25)
+    _budget_of_jobs(monkeypatch, 5, max(len(r.seq) for p in fq for r in p))
+    sliced = TorchReadAligner(pkg, device="cpu")
+    if path == "arrays":
+        monkeypatch.setattr(sliced, "_align_jobs_soa", lambda *a: None)
+    calls = _count_nw_calls(sliced, monkeypatch)
+    got = sliced.align_pairs(fq, insert_mean=260, insert_sd=25)
+    assert len(calls) > 1 and max(calls) <= 5
+    assert sum(calls) == sliced.stats.n_chain_extensions
+    assert len(got) == len(want) > 0
+    for x, y in zip(got, want):
+        assert (x.read_id, x.mapq) == (y.read_id, y.mapq)
+        _fields_equal(x.chain1, y.chain1)
+        _fields_equal(x.chain2, y.chain2)
+
+
+def test_slicing_by_pointer_bytes_keeps_insert_size(align_world,
+                                                    monkeypatch):
+    """The insert-size estimate aligns through _jobs_to_alignments, the
+    third slicing entry point."""
+    pkg, fq = align_world
+    want = TorchReadAligner(pkg, device="cpu").estimate_insert_size(fq)
+    _budget_of_jobs(monkeypatch, 3, max(len(r.seq) for p in fq for r in p))
+    sliced = TorchReadAligner(pkg, device="cpu")
+    calls = _count_nw_calls(sliced, monkeypatch)
+    assert sliced.estimate_insert_size(fq) == want
+    assert len(calls) > 1 and max(calls) <= 3
 
 
 @pytest.fixture(scope="module")
