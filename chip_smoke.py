@@ -13,7 +13,10 @@ and no result line is printed:
   (d) K3, the pair-likelihood difference term, against its plain version at
       C = 2,200 clusters x R = 16,460 reads (the e2e world's locus A shape,
       not a multiple of the kernel's read chunk), rtol 1e-6 and atol 1e-2 on
-      the full pair log-likelihood, and bit-identical across reruns;
+      the full pair log-likelihood, exactly symmetric and bit-identical
+      across reruns; the kernel's and the plain version's largest error
+      against a float64 numpy evaluation on sampled cluster pairs; and the
+      kernel's share of its special-function bound;
   (e) end to end: an IMGT-scale two-locus world (stress_imgt.py's recipe:
       2,200 alleles per locus, 1,250x targeted coverage) typed by the port's
       CLI (``--action HLA --device cuda``).  The main path must launch K1 and
@@ -43,7 +46,10 @@ and no result line is printed:
 The last two lines are the card's name and power limit, and
 {"ok": true, "device": {...}}; the line before them is the kernels' JSON
 record, one entry per kernel and main path (K3 runs on both), with the
-launches of that path's run.  Nothing here imports jax or the JAX package.
+launches of that path's run and the kernel's time beside its bound: the
+larger of its bytes (inputs read once, outputs written once) over the card's
+memory rate and its operations over the card's peak rate for their type.
+Nothing here imports jax or the JAX package.
 The worlds are cached under build/chip_smoke_world/.  One kernel alone:
 
     python -c "import chip_smoke as c; c.check_nw_long(128, 16384, 256, {})"
@@ -62,10 +68,20 @@ import subprocess
 import sys
 import time
 
-sys.modules["jax"] = None           # any import of jax now fails loudly
+for _blocked in ("jax", "hla_la_tpu"):   # any import of either fails loudly
+    sys.modules[_blocked] = None
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORLD_DIR = os.path.join(ROOT, "build", "chip_smoke_world")
+# peaks of one H100 SXM (NVIDIA's data sheet; CUDA programming guide,
+# arithmetic instruction throughput at compute capability 9.0)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+SFU_PER_CLOCK_PER_SM = 16       # ex2, lg2, rcp, ... results per clock
+NW_FLOPS_PER_CELL = 10          # 3 states: 5 adds, 5 max/selects
+PAIR_FLOPS_PER_CELL = 5         # sub, mul, add 1, two running sums
+PAIR_SFU_PER_CELL = 2           # one exp and one log
+PAIR_F64_SAMPLES = 2048
 NW_L, NW_W = 101, 32
 NW_BATCHES = (65536, 4096)
 NW_CPU_B = 4096                 # batch also held against the CPU version
@@ -80,7 +96,6 @@ NW_LONG_SHAPES = ((128, 16384, 256), (1024, 1400, 160), (256, 500, 100),
                   (8192, 1100, 256))
 NW_LONG_CPU = NW_LONG_SHAPES[2]
 LONG_W = 256                    # the aligner's band in long-read mode
-REF_MAX_JOBS = 65536            # the reference aligner's jobs per NW call
 SMALL_LONG_WORLD = {"backbone": 6000, "n_alleles": 60, "coverage": 20.0,
                     "read_length": 2000}
 
@@ -112,6 +127,48 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def sm_clocks_mhz() -> tuple[float, float]:
+    """(current, maximum) SM clock of card 0 as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, check=True).stdout
+    now, top = (float(x) for x in out.strip().split(","))
+    return now, top
+
+
+def nw_bound(B: int, L: int, W: int) -> dict:
+    """The least time the card could take for one NW forward call: reads,
+    lengths and refs read once, scores, ends and pointers written once,
+    against NW_FLOPS_PER_CELL float32 operations per cell."""
+    n_bytes = B * L + 4 * B + B * (L + W) + 12 * B + B * (L + 1) * W
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = NW_FLOPS_PER_CELL * B * L * W / FP32_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}     # no single PyTorch call computes it
+
+
+def pair_bound(C: int, R: int, max_mhz: float) -> dict:
+    """The least time the card could take for the pair reduction's
+    C (C + 1) / 2 * R cells: L read and the output written once, against the
+    float32 operations and against the two special-function results per
+    cell at the card's top clock.  The latter is the larger by far."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cells = C * (C + 1) // 2 * R
+    by_bytes = 4 * (C * R + C * C) / HBM_BYTES_PER_S * 1e3
+    by_flops = PAIR_FLOPS_PER_CELL * cells / FP32_FLOPS * 1e3
+    by_sfu = (PAIR_SFU_PER_CELL * cells
+              / (SFU_PER_CLOCK_PER_SM * sms * max_mhz * 1e6) * 1e3)
+    by_ops = max(by_flops, by_sfu)
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_ms_float32_only": by_flops,
+            "library_ms": None}     # a broadcast logaddexp + sum would
+    # need a C x C x R intermediate; no single PyTorch call computes it
 
 
 def toolchain() -> str:
@@ -205,7 +262,8 @@ def check_nw(B: int, record: dict) -> None:
           f"kernel {ms:.4f} ms ({gcells:.2f} Gcells/s), plain {plain_ms:.4f} "
           f"ms")
     if B == NW_BATCHES[0]:
-        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      **nw_bound(B, NW_L, NW_W))
 
 
 def timed(fn):
@@ -220,10 +278,11 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
-def check_nw_long(B: int, L: int, W: int, record: dict) -> None:
+def check_nw_long(B: int, L: int, W: int, record: dict | None) -> None:
     """K2 against the plain version on the card (and, at NW_LONG_CPU, on
-    the CPU).  The plain version's row loop takes seconds at the long
-    shapes, so its one checked call is also its timed one."""
+    the CPU); the times go into `record` if one is given.  The plain
+    version's row loop takes seconds at the long shapes, so its one checked
+    call is also its timed one."""
     import numpy as np
     import torch
     from hla_la_tpu_torch.ops.banded_nw import DEFAULT_SCORING as sc
@@ -251,13 +310,39 @@ def check_nw_long(B: int, L: int, W: int, record: dict) -> None:
           f"{n_live}/{B} live rows; kernel {ms:.4f} ms ({gcells:.2f} "
           f"Gcells/s), plain {plain_ms:.4f} ms ({B * (L + 1) * W / 1e6:.1f} "
           f"MB of pointers)")
-    if (B, L, W) == NW_LONG_SHAPES[0]:
-        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    if record is not None:
+        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      **nw_bound(B, L, W))
+
+
+def pair_f64_errors(L, versions: dict) -> dict:
+    """Largest |acc - float64 acc| of each version's (acc, Rpad) on
+    PAIR_F64_SAMPLES cluster pairs: random ones, the corners and the pairs
+    across the first tile seam.  The float64 value is numpy's, on the
+    float32 L; padded reads add log 2 each."""
+    import numpy as np
+    C, R = L.shape
+    rng = np.random.default_rng(C * R)
+    c1 = rng.integers(0, C, PAIR_F64_SAMPLES)
+    c2 = rng.integers(0, C, PAIR_F64_SAMPLES)
+    fixed = [(0, 0), (0, C - 1), (C - 1, C - 1), (C - 1, 0),
+             (min(63, C - 1), min(64, C - 1))]
+    c1[:len(fixed)], c2[:len(fixed)] = zip(*fixed)
+    L64 = L.astype(np.float64)
+    want = np.empty(PAIR_F64_SAMPLES)
+    for lo in range(0, PAIR_F64_SAMPLES, 256):
+        d = np.abs(L64[c1[lo:lo + 256]] - L64[c2[lo:lo + 256]])
+        want[lo:lo + 256] = (0.5 * d + np.log1p(np.exp(-d))).sum(axis=1)
+    return {name: float(np.abs(
+                acc.cpu().numpy()[c1, c2].astype(np.float64)
+                - (want + math.log(2.0) * (rpad - R))).max())
+            for name, (acc, rpad) in versions.items()}
 
 
 def check_pair(C: int, R: int, record: dict) -> None:
     import numpy as np
     import torch
+    from hla_la_tpu_torch import _build
     from hla_la_tpu_torch.ops.cuda_pair import pair_ll_diff_cuda
     from hla_la_tpu_torch.ops.pair_ll import LOG_HALF, pair_ll_diff_plain
 
@@ -287,15 +372,29 @@ def check_pair(C: int, R: int, record: dict) -> None:
              f"{err.max():.4g} beyond rtol={PAIR_RTOL} atol={PAIR_ATOL}")
     if not np.array_equal(got, got.T):
         fail("K3 output is not symmetric")
-    ms = cuda_ms(lambda: pair_ll_diff_cuda(Ld), reps=3)
+    err64 = pair_f64_errors(L, {"kernel": (acc1, rpad), "plain": plain})
+    ms = cuda_ms(lambda: pair_ll_diff_cuda(Ld), reps=5)
+    mhz, max_mhz = sm_clocks_mhz()
     plain_ms = cuda_ms(lambda: pair_ll_diff_plain(Ld), reps=1)
-    gcells = C * C * R / (ms * 1e-3) / 1e9
-    print(f"K3 C={C} R={R} (kernel pads to {rpad}, plain to "
-          f"{plain[1]}): within rtol={PAIR_RTOL} atol={PAIR_ATOL} of plain "
-          f"(max abs err {err.max():.4g}), bit-identical reruns; kernel "
-          f"{ms:.3f} ms ({gcells:.1f} Gcells/s over the full C^2 R), plain "
-          f"{plain_ms:.3f} ms")
-    record.update(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms)
+    bound = pair_bound(C, R, max_mhz)
+    gcells = C * (C + 1) // 2 * R / (ms * 1e-3) / 1e9
+    # scratch floats = parts * tiles * 64 * 64 when the read range is cut
+    n_tiles = -(-C // 64)
+    parts = max(1, _build.library().lib.hla_pair_ll_scratch_floats(C, R)
+                // (n_tiles * (n_tiles + 1) // 2 * 64 * 64))
+    print(f"K3 C={C} R={R} (kernel pads to {rpad} and cuts the reads into "
+          f"{parts} part(s), plain pads to {plain[1]}): within rtol={PAIR_RTOL} atol={PAIR_ATOL} of plain "
+          f"(max abs err {err.max():.4g}), exactly symmetric, bit-identical "
+          f"reruns; max |acc - float64| on {PAIR_F64_SAMPLES} sampled pairs: "
+          f"kernel {err64['kernel']:.4g}, plain {err64['plain']:.4g}; kernel "
+          f"{ms:.3f} ms ({gcells:.1f} Gcells/s over the C(C+1)/2 R live "
+          f"cells), plain {plain_ms:.3f} ms; special-function bound "
+          f"{bound['bound_ms']:.3f} ms at {max_mhz:.0f} MHz "
+          f"({100 * bound['bound_ms'] / ms:.1f}% of it reached; SM clock "
+          f"after the timed launches {mhz:.0f} MHz)")
+    record.update(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+                  max_abs_err_f64=err64["kernel"],
+                  plain_max_abs_err_f64=err64["plain"], **bound)
 
 
 class _Tee(io.TextIOBase):
@@ -479,13 +578,13 @@ def main() -> int:
     short, long_ = "short reads, phase (e)", "long reads, phase (h)"
     nw = {"name": "banded_nw", "path": short, "route": "cuda",
           "source": "hla_la_tpu_torch/csrc/banded_nw.cu",
-          "replaces": "hla_la_tpu/ops/pallas_nw.py:31"}
+          "replaces": "hla_la_tpu/ops/pallas_nw.py:264"}
     nw_long = {"name": "banded_nw_long", "path": long_, "route": "cuda",
                "source": "hla_la_tpu_torch/csrc/banded_nw_long.cu",
-               "replaces": "hla_la_tpu/ops/pallas_nw.py:281"}
+               "replaces": "hla_la_tpu/ops/pallas_nw.py:550"}
     pair = {"name": "pair_ll_diff", "path": short, "route": "cuda",
             "source": "hla_la_tpu_torch/csrc/pair_ll.cu",
-            "replaces": "hla_la_tpu/ops/pallas_pair.py:100"}
+            "replaces": "hla_la_tpu/ops/pallas_pair.py:85"}     # and :138
     pair_long = {**pair, "path": long_}
 
     phase("(c) K1 banded NW vs plain")
@@ -517,10 +616,11 @@ def main() -> int:
     sync()
 
     phase("(g) K2 long-read banded NW vs plain")
-    path_shape = (jobs_per_call(LONG_READ_LENGTH, LONG_W, REF_MAX_JOBS),
+    path_shape = (jobs_per_call(LONG_READ_LENGTH, LONG_W),
                   LONG_READ_LENGTH, LONG_W)
-    for B, L, W in (*NW_LONG_SHAPES, path_shape):
-        check_nw_long(B, L, W, nw_long)
+    for B, L, W in NW_LONG_SHAPES:
+        check_nw_long(B, L, W, None)
+    check_nw_long(*path_shape, nw_long)     # the shape (h) launches
     sync()
 
     phase("(h) end to end on long reads: the port's CLI on cuda")

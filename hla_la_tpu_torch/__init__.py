@@ -1,24 +1,29 @@
 """hla_la_tpu_torch — the PyTorch/CUDA port of hla_la_tpu.
 
-The reference JAX package stays beside it, unchanged.  The port owns only
-the device seams of the ``--action HLA`` path, on paired short reads and on
-long reads (``--longReads``), and imports every host layer (I/O, graph,
-seeding, native code, backtrace, projection, typing model bookkeeping) from
-``hla_la_tpu``:
+A package of its own beside the reference JAX package: it imports ``torch``
+and numpy, never ``jax`` and nothing of ``hla_la_tpu``.  It covers the
+``--action HLA`` path on paired short reads and on long reads
+(``--longReads``), with the same directory layout and module names as the
+reference, so each module has its counterpart there:
 
   cli               the ``--action HLA`` entry point (``--device cuda|cpu``)
-  models/pipeline   run_hla_typing over the port's aligner and typer
-  models/aligner    TorchReadAligner: the NW forward on the device
-  models/typer      TorchHLATyper: cluster likelihoods + pair reduction
+  models/           pipeline (run_hla_typing), aligner (ReadAligner), typer
+                    (HLATyper), graph-alignment records and the graph-DP
+                    fallback
   ops/banded_nw     NW forward: kernel K1 (W <= 32) or K2 (W > 32) on
-                    CUDA, plain PyTorch on CPU
+                    CUDA, plain PyTorch on CPU; numpy forward and backtrace
   ops/pair_ll       likelihood model: matmul + kernel K3 / plain PyTorch
+  ops/graph_dp      graph-space extension DP (fallback realigner)
   csrc/             the CUDA sources of K1, K2 and K3, built by _build.py
   device            explicit device selection, no silent fallback
-  sim               simulated typing worlds with planted alleles
+  mapping/          k-mer index, seeding, global alignment, decoy index
+  graph/            PRG core, dense compilation, graph package I/O
+  io/               FASTA/FASTQ/BAM/CRAM host I/O
+  native            ctypes binding of native/hla_native.cpp
+  sim/              PRG, read and truth simulators; typing worlds with
+                    planted alleles
+  utils/            phred/log-space helpers, config, stats
   profile_e2e       device-time breakdown of one CLI run
-
-It never imports jax.
 """
 
 __version__ = "0.1.0"

@@ -10,8 +10,9 @@ first use, keyed on a hash of the sources and flags, so an edit rebuilds and
 an unchanged tree reuses the library.  There is no fallback: a missing
 ``nvcc`` or a failed build raises with the compiler's output.
 
-Full-precision math on purpose: ``--use_fast_math`` would swap ``expf`` for
-``__expf``, which misses the pair reduction's 1e-6 relative bar.
+No ``--use_fast_math``: K1 and K2 are held bit for bit to IEEE float32
+arithmetic, and K3 names its two approximate instructions itself and relies
+on its compensated sums not being reassociated.
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# argtypes of every C entry point; all of them return int
+_i64 = ctypes.c_longlong
+# argtypes of every C entry point; they return int unless _RESTYPES says so
+_RESTYPES = {"hla_pair_ll_scratch_floats": _i64}
 _ENTRY_POINTS = {
     "hla_banded_nw_forward": [_vp, _vp, _vp, _int, _int, _int,
                               _float, _float, _float, _float,
@@ -41,7 +44,8 @@ _ENTRY_POINTS = {
     "hla_banded_nw_long_forward": [_vp, _vp, _vp, _int, _int, _int,
                                    _float, _float, _float, _float,
                                    _vp, _vp, _vp, _vp, _vp],
-    "hla_pair_ll_diff": [_vp, _int, _int, _vp, _vp],
+    "hla_pair_ll_diff": [_vp, _int, _int, _vp, _vp, _i64, _vp],
+    "hla_pair_ll_scratch_floats": [_int, _int],
     "hla_pair_ll_read_chunk": [],
 }
 
@@ -139,7 +143,7 @@ def build() -> KernelLibrary:
     for name, argtypes in _ENTRY_POINTS.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return KernelLibrary(lib, out, build_s, log)
 
 

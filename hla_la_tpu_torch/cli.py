@@ -4,12 +4,11 @@ extracted from a ``--BAM`` (or CRAM with ``--ref``), and on long reads with
 ``--longReads ont2d|pacbio``, with the device work on ``--device`` (default
 ``cuda``; there is no silent fallback to the CPU).
 
-The input rules are the reference CLI's (``hla_la_tpu/cli.py:199-269``),
-with its own helpers for read extraction, the knownReferences match, FASTQ
-pairing and the 50 kb split of long reads: reads of a BAM whose mate was
-not extracted are typed as unpaired; in long-read mode every pair is
-flattened into unpaired reads.  Not ported yet: other actions (they exit
-non-zero).
+The input rules are the reference CLI's (``hla_la_tpu/cli.py:199-269``):
+reads of a BAM are extracted by the knownReferences match; those whose mate
+was not extracted are typed as unpaired; in long-read mode every pair is
+flattened into unpaired reads and reads over 50 kb are split.  Not ported
+yet: other actions (they exit non-zero).
 
   python -m hla_la_tpu_torch --action HLA --FASTQ1 R_1.fq --FASTQ2 R_2.fq \\
       --graph /path/to/graphdir --sampleID S1 --workingDir out/ --device cuda
@@ -22,6 +21,15 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+from .graph.package import GraphPackage
+from .io.bam import BamReader, bam_to_fastq_pairs, extract_reads, is_cram
+from .io.cram import CramReader
+from .io.fasta import read_fasta
+from .io.fastq import FastqRead, read_fastq
+from .models.pipeline import pair_up_fastq, run_hla_typing
+from .utils.config import RunConfig, TyperConfig
+from .utils.timing import log_progress
 
 
 def main(argv=None) -> int:
@@ -50,17 +58,54 @@ def main(argv=None) -> int:
     return action_hla(args)
 
 
+def _require_graph(args):
+    if not args.graph or not os.path.isdir(args.graph):
+        raise SystemExit(f"--graph directory required (got {args.graph!r})")
+    return GraphPackage(args.graph)
+
+
+def _regions_from_spec(pkg, spec_path: str):
+    """knownReferences spec rows -> extraction regions (HLA-LA.pl:374-412).
+
+    Parses the spec file directly: the matched spec may live in a
+    --moreReferencesDir outside the package."""
+    spec = pkg.known_references([os.path.dirname(spec_path)])[spec_path]
+    regions = []
+    include_unmapped = False
+    for cid, rec in spec.items():
+        if cid == "*":
+            # the idxstats unmapped pseudo-contig: ExtractCompleteContig=1
+            # means "also extract unmapped reads" (HLA-LA.pl:336-340, 415)
+            include_unmapped = rec.get("ExtractCompleteContig") in ("1", "yes")
+            continue
+        if rec.get("ExtractCompleteContig") in ("1", "yes"):
+            regions.append((cid, 0, 0))
+        else:
+            start = rec.get("PartialExtraction_Start") or ""
+            stop = rec.get("PartialExtraction_Stop") or ""
+            if start and stop:
+                regions.append((cid, int(start) - 1, int(stop)))
+    return regions, include_unmapped
+
+
+def _split_long_reads(reads, chunk: int = 50000):
+    """Reads >50kb are split into 50kb chunks (HLA-LA.pl:503-524)."""
+    out = []
+    for r in reads:
+        if len(r.seq) <= chunk:
+            out.append(r)
+            continue
+        for i in range(0, len(r.seq), chunk):
+            out.append(FastqRead(f"{r.name}:::chunk{i // chunk}",
+                                 r.seq[i:i + chunk], r.qual[i:i + chunk]))
+    return out
+
+
 def _read_input(args, pkg):
     """(pairs, unpaired) from --FASTQ1/--FASTQ2 and --FASTQU, or extracted
     from --BAM with the reads whose mate was not extracted as unpaired; in
     long-read mode every pair is flattened into unpaired reads and reads
     over 50 kb are split (``hla_la_tpu/cli.py:199-269``)."""
-    from hla_la_tpu.cli import _split_long_reads
-    from hla_la_tpu.io.fastq import read_fastq
-    from hla_la_tpu.models.pipeline import pair_up_fastq
-    from hla_la_tpu.utils.config import TyperConfig
-    from hla_la_tpu.utils.timing import log_progress
-
     for p in (args.BAM, args.FASTQ1, args.FASTQ2, args.FASTQU, args.ref):
         if p and not os.path.exists(p):
             raise SystemExit(f"input file not found: {p}")
@@ -96,18 +141,11 @@ def _read_input(args, pkg):
 def _extract_bam(args, pkg):
     """(pairs, unpaired) extracted from --BAM by the knownReferences
     match, as the reference CLI does (``hla_la_tpu/cli.py:203-239``)."""
-    from hla_la_tpu.cli import _regions_from_spec
-    from hla_la_tpu.io.bam import BamReader, bam_to_fastq_pairs, \
-        extract_reads, is_cram
-    from hla_la_tpu.utils.timing import log_progress
-
     log_progress(f"extracting reads from {args.BAM}")
     cram_reference = None
     if is_cram(args.BAM):
         if args.ref:
-            from hla_la_tpu.io.fasta import read_fasta
             cram_reference = read_fasta(args.ref)
-        from hla_la_tpu.io.cram import CramReader
         cram_reference = CramReader(args.BAM, reference=cram_reference)
         contigs = cram_reference.contigs()
     else:
@@ -133,12 +171,6 @@ def _extract_bam(args, pkg):
 
 
 def action_hla(args) -> int:
-    from hla_la_tpu.cli import _require_graph
-    from hla_la_tpu.utils.config import RunConfig
-    from hla_la_tpu.utils.timing import log_progress
-
-    from .models.pipeline import run_hla_typing
-
     pkg = _require_graph(args)
     out_dir = args.outputDirectory or os.path.join(args.workingDir,
                                                    args.sampleID)

@@ -1,2 +1,2 @@
-"""The port's pipeline layers: subclasses of the reference's aligner and
-typer that own only the device seams, and the HLA typing workflow."""
+"""The port's pipeline layers: read alignment, HLA typing and the typing
+workflow, with the device work on an explicit device."""

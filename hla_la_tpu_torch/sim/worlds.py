@@ -1,10 +1,11 @@
 """Simulated typing worlds for driving the port end to end.
 
 A world is a graph package plus reads sequenced from two planted
-haplotypes, made with the reference's simulators (``hla_la_tpu/sim``): a
-PRG panel whose gene loci carry `n_alleles` alleles each, and reads from
-haplotypes 1 and 2.  The planted alleles are the truth a run's calls are
-held to.  Worlds are cached in a directory keyed on their parameters.
+haplotypes, made with the package's simulators (``graph_sim``,
+``read_sim``): a PRG panel whose gene loci carry `n_alleles` alleles each,
+and reads from haplotypes 1 and 2.  The planted alleles are the truth a
+run's calls are held to.  Worlds are cached in a directory keyed on their
+parameters.
 
 - ``typing_world``: the recipe of ``stress_imgt.py``, targeted deep paired
   100 bp reads over each gene window;
@@ -24,9 +25,9 @@ import shutil
 
 import numpy as np
 
-from hla_la_tpu.io.fastq import write_fastq
-from hla_la_tpu.sim.graph_sim import simulate_prg_package
-from hla_la_tpu.sim.read_sim import ReadSimulator
+from ..io.fastq import write_fastq
+from .graph_sim import simulate_prg_package
+from .read_sim import ReadSimulator
 
 # stress_imgt.py's world: two class-I-sized loci (J = 540 typed columns
 # each), 2,200 alleles per locus, 1,250x targeted coverage per haplotype

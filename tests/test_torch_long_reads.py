@@ -21,7 +21,8 @@ from hla_la_tpu.utils.config import RunConfig
 from hla_la_tpu_torch import sim as port_sim
 from hla_la_tpu_torch.cli import main as port_main
 from hla_la_tpu_torch.models import aligner as port_aligner
-from hla_la_tpu_torch.models.aligner import TorchReadAligner, jobs_per_call
+from hla_la_tpu_torch.models.aligner import ReadAligner as TorchReadAligner
+from hla_la_tpu_torch.models.aligner import jobs_per_call
 
 torch.set_num_threads(1)
 
@@ -113,17 +114,32 @@ def test_slicing_by_pointer_bytes_keeps_alignments(long_world, monkeypatch):
     _assert_same_alignments(got, want)
 
 
-def test_max_b_outside_a_slicing_call_raises(long_world):
-    """The jobs per NW call depend on the longest read, which only the
-    slicing entry points know: elsewhere _max_b refuses, and after a call
-    the recorded length is gone."""
+def test_jobs_per_call_follow_the_reads_of_each_call(long_world,
+                                                     monkeypatch):
+    """The jobs of one NW call are reckoned where the jobs are sliced, from
+    the longest read of that call: the same aligner, under one budget,
+    takes more jobs per NW call for shorter reads.  It keeps no read length
+    between calls and has no jobs-per-call rule that knows none."""
     _, pkg, fq = long_world
+    short = [type(r)(r.name, r.seq[:600], r.qual[:600]) for r in fq[:6]]
+    L = max(len(r.seq) for r in fq[:6])
+    monkeypatch.setattr(port_aligner, "NW_POINTER_BUDGET", 2 * (L + 1) * 256)
     port = TorchReadAligner(pkg, CFG, device="cpu")
-    with pytest.raises(RuntimeError, match="no read length recorded"):
-        port._max_b()
-    port.align_unpaired(fq[:2])
-    with pytest.raises(RuntimeError, match="no read length recorded"):
-        port._max_b()
+    assert not hasattr(port, "_max_b") and not hasattr(port, "_nw_len")
+    calls = []
+    run_nw = port._run_nw
+
+    def counting(reads_arr, lens_arr, refs_arr):
+        calls.append(reads_arr.shape)
+        return run_nw(reads_arr, lens_arr, refs_arr)
+
+    monkeypatch.setattr(port, "_run_nw", counting)
+    port.align_unpaired(fq[:6])
+    long_calls, calls[:] = list(calls), []
+    port.align_unpaired(short)
+    assert max(b for b, _ in long_calls) == 2
+    assert max(b for b, _ in calls) == jobs_per_call(600, 256, 65536) > 2
+    assert {n for _, n in calls} == {600}
 
 
 def _table(out_dir, name):

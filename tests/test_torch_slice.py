@@ -22,7 +22,7 @@ from hla_la_tpu.sim.read_sim import ReadSimulator
 from hla_la_tpu_torch import sim as port_sim
 from hla_la_tpu_torch.cli import main as port_main
 from hla_la_tpu_torch.models import aligner as port_aligner
-from hla_la_tpu_torch.models.aligner import TorchReadAligner
+from hla_la_tpu_torch.models.aligner import ReadAligner as TorchReadAligner
 from hla_la_tpu_torch.models.pipeline import run_hla_typing
 from hla_la_tpu_torch.ops import banded_nw as port_nw
 from hla_la_tpu_torch.profile_e2e import device_summary
