@@ -8,8 +8,11 @@ and no result line is printed:
   (a) toolchain: torch, CUDA, nvcc, and the card's name and power limit;
   (b) build: compile the kernels from hla_la_tpu_torch/csrc with nvcc;
   (c) K1, the banded NW forward, against its plain PyTorch version on the
-      card (and, at the smaller batch, on the CPU), bit-identical on live
-      rows, at L = 101, W = 32, B = 65,536 and 4,096;
+      card, bit-identical on live rows and across reruns, at
+      B x L x W = 65,536 x 101 x 32 (the short-read main path's shape),
+      4,096 x 101 x 32 (also held against the CPU), 4,096 x 77 x 31 (a band
+      that is not a multiple of the kernel's four cells per lane) and
+      4,096 x 150 x 10 (a narrow band, eight jobs per warp);
   (d) K3, the pair-likelihood difference term, against its plain version at
       C = 2,200 clusters x R = 16,460 reads (the e2e world's locus A shape,
       not a multiple of the kernel's read chunk), rtol 1e-6 and atol 1e-2 on
@@ -27,10 +30,12 @@ and no result line is printed:
       tests hold to the JAX package.  Identical coverage track and calls,
       Q1/Q2 within 1e-3;
   (g) K2, the banded NW forward for bands wider than 32, against the same
-      plain version on the card, bit-identical on live rows, at
-      B x L x W = 128 x 16,384 x 256 (the long-read working point),
-      1,024 x 1,400 x 160 (W not a power of two), 256 x 500 x 100 (the
-      last warp part idle; also held against the CPU), 838 x 10,000 x 256
+      plain version on the card, bit-identical on live rows and across
+      reruns, at B x L x W = 128 x 16,384 x 256 (the long-read working
+      point), 1,024 x 1,400 x 160 (W not a power of two), 256 x 500 x 100
+      (four cells per lane; also held against the CPU), 64 x 1,000 x 600
+      (a job across three warps), 256 x 500 x 33 (a band that is not a
+      multiple of the cells per lane, two jobs per warp), 838 x 10,000 x 256
       (the most jobs one NW call of phase (h) holds under the aligner's
       pointer budget) and 8,192 x 1,100 x 256 (pointer offsets past 2^31);
   (h) end to end on long reads: a two-locus world with class-I-sized genes
@@ -82,9 +87,12 @@ NW_FLOPS_PER_CELL = 10          # 3 states: 5 adds, 5 max/selects
 PAIR_FLOPS_PER_CELL = 5         # sub, mul, add 1, two running sums
 PAIR_SFU_PER_CELL = 2           # one exp and one log
 PAIR_F64_SAMPLES = 2048
-NW_L, NW_W = 101, 32
-NW_BATCHES = (65536, 4096)
-NW_CPU_B = 4096                 # batch also held against the CPU version
+# (B, L, W) of phase (c): the main path's shape first (the one recorded),
+# then a batch also held against the CPU, a band that is not a multiple of
+# the kernel's cells per lane, and an odd L with a narrow band
+NW_SHAPES = ((65536, 101, 32), (4096, 101, 32), (4096, 77, 31),
+             (4096, 150, 10))
+NW_CPU = NW_SHAPES[1]
 PAIR_C, PAIR_R = 2200, 16460
 PAIR_RTOL, PAIR_ATOL = 1e-6, 1e-2
 Q_TOL = 1e-3
@@ -93,7 +101,7 @@ SMALL_WORLD = {"n_alleles": 60, "coverage": 40.0}
 # (B, L, W) of phase (g) besides the shape of phase (h)'s NW calls; the
 # third is also held against the CPU, the last passes 2^31 pointer bytes
 NW_LONG_SHAPES = ((128, 16384, 256), (1024, 1400, 160), (256, 500, 100),
-                  (8192, 1100, 256))
+                  (64, 1000, 600), (256, 500, 33), (8192, 1100, 256))
 NW_LONG_CPU = NW_LONG_SHAPES[2]
 LONG_W = 256                    # the aligner's band in long-read mode
 SMALL_LONG_WORLD = {"backbone": 6000, "n_alleles": 60, "coverage": 20.0,
@@ -235,14 +243,16 @@ def hold_nw(kernel: str, shape: str, got, others: dict) -> tuple:
     return int(live.sum()), float(np.abs(got[0][live] - first[0][live]).max())
 
 
-def check_nw(B: int, record: dict) -> None:
+def check_nw(B: int, L: int, W: int, record: dict | None) -> None:
+    """K1 against the plain version on the card (and, at NW_CPU, on the
+    CPU); the times go into `record` if one is given."""
     import numpy as np
     import torch
     from hla_la_tpu_torch.ops.banded_nw import DEFAULT_SCORING as sc
     from hla_la_tpu_torch.ops.banded_nw import banded_nw_plain
     from hla_la_tpu_torch.ops.cuda_nw import banded_nw_cuda
 
-    reads, lens, refs = nw_world(np.random.default_rng(B), B, NW_L, NW_W)
+    reads, lens, refs = nw_world(np.random.default_rng(B + L + W), B, L, W)
     host = [torch.from_numpy(a) for a in (reads, lens, refs)]
     args = tuple(t.cuda() for t in host) + (sc,)
     got = [t.cpu().numpy() for t in banded_nw_cuda(*args)]
@@ -250,20 +260,25 @@ def check_nw(B: int, record: dict) -> None:
     others = {"plain on the card":
               [t.cpu().numpy() for t in banded_nw_plain(*args)]}
     sync()
-    if B == NW_CPU_B:
+    if (B, L, W) == NW_CPU:
         others["plain on the CPU"] = [t.numpy() for t in
                                       banded_nw_plain(*host, sc)]
-    n_live, err = hold_nw("K1", f"B={B}", got, others)
+    shape = f"B={B} L={L} W={W}"
+    n_live, err = hold_nw("K1", shape, got, others)
+    again = [t.cpu().numpy() for t in banded_nw_cuda(*args)]
+    if not all(np.array_equal(a, b) for a, b in zip(got, again)):
+        fail(f"K1 reruns at {shape} are not bit-identical")
     ms = cuda_ms(lambda: banded_nw_cuda(*args), reps=10)
     plain_ms = cuda_ms(lambda: banded_nw_plain(*args), reps=1)
-    gcells = B * NW_L * NW_W / (ms * 1e-3) / 1e9
-    print(f"K1 B={B} L={NW_L} W={NW_W}: bit-identical to the "
-          f"{' and '.join(others)} on {n_live}/{B} live rows; "
-          f"kernel {ms:.4f} ms ({gcells:.2f} Gcells/s), plain {plain_ms:.4f} "
-          f"ms")
-    if B == NW_BATCHES[0]:
-        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                      **nw_bound(B, NW_L, NW_W))
+    gcells = B * L * W / (ms * 1e-3) / 1e9
+    bound = nw_bound(B, L, W)
+    print(f"K1 {shape}: bit-identical to the {' and '.join(others)} on "
+          f"{n_live}/{B} live rows, and across reruns; kernel {ms:.4f} ms "
+          f"({gcells:.2f} Gcells/s, {100 * bound['bound_ms'] / ms:.1f}% of "
+          f"the {bound['bound_by']} bound {bound['bound_ms']:.4f} ms), plain "
+          f"{plain_ms:.4f} ms")
+    if record is not None:
+        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
 
 
 def timed(fn):
@@ -304,15 +319,23 @@ def check_nw_long(B: int, L: int, W: int, record: dict | None) -> None:
                                       banded_nw_plain(*host, sc)]
     shape = f"B={B} L={L} W={W}"
     n_live, err = hold_nw("K2", shape, got, others)
+    names = " and ".join(others)
+    del others
+    again = banded_nw_long_cuda(*args)
+    if not all(np.array_equal(a, b.cpu().numpy())
+               for a, b in zip(got, again)):
+        fail(f"K2 reruns at {shape} are not bit-identical")
+    del again
     ms = cuda_ms(lambda: banded_nw_long_cuda(*args), reps=5)
     gcells = B * L * W / (ms * 1e-3) / 1e9
-    print(f"K2 {shape}: bit-identical to the {' and '.join(others)} on "
-          f"{n_live}/{B} live rows; kernel {ms:.4f} ms ({gcells:.2f} "
-          f"Gcells/s), plain {plain_ms:.4f} ms ({B * (L + 1) * W / 1e6:.1f} "
-          f"MB of pointers)")
+    bound = nw_bound(B, L, W)
+    print(f"K2 {shape}: bit-identical to the {names} on {n_live}/{B} live "
+          f"rows, and across reruns; kernel {ms:.4f} ms ({gcells:.2f} "
+          f"Gcells/s, {100 * bound['bound_ms'] / ms:.1f}% of the "
+          f"{bound['bound_by']} bound {bound['bound_ms']:.4f} ms), plain "
+          f"{plain_ms:.4f} ms ({B * (L + 1) * W / 1e6:.1f} MB of pointers)")
     if record is not None:
-        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                      **nw_bound(B, L, W))
+        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
 
 
 def pair_f64_errors(L, versions: dict) -> dict:
@@ -588,8 +611,8 @@ def main() -> int:
     pair_long = {**pair, "path": long_}
 
     phase("(c) K1 banded NW vs plain")
-    for B in NW_BATCHES:
-        check_nw(B, nw)
+    for shape in NW_SHAPES:
+        check_nw(*shape, nw if shape == NW_SHAPES[0] else None)
     sync()
 
     phase("(d) K3 pair reduction vs plain")

@@ -1,14 +1,15 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-The sources are ``hla_la_tpu_torch/csrc/*.cu``, each with a plain C entry
-point that launches on the caller's stream and returns
-``cudaGetLastError()``.  They are compiled for Hopper (``sm_90a``), one
-``nvcc`` process per source, all started together, and linked into one
-shared library under ``build/hla_la_tpu_torch/`` at the repository root
-(a per-user cache when the package is installed, see ``build_dir``), on
-first use, keyed on a hash of the sources and flags, so an edit rebuilds and
-an unchanged tree reuses the library.  There is no fallback: a missing
-``nvcc`` or a failed build raises with the compiler's output.
+The sources are ``hla_la_tpu_torch/csrc/*.cu`` (and the headers beside
+them), each with a plain C entry point that launches on the caller's stream
+and returns ``cudaGetLastError()``.  They are compiled for Hopper
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+linked into one shared library under ``build/hla_la_tpu_torch/`` at the
+repository root (a per-user cache when the package is installed, see
+``build_dir``), on first use, keyed on a hash of the sources, headers and
+flags, so an edit rebuilds and an unchanged tree reuses the library.  There
+is no fallback: a missing ``nvcc`` or a failed build raises with the
+compiler's output.
 
 No ``--use_fast_math``: K1 and K2 are held bit for bit to IEEE float32
 arithmetic, and K3 names its two approximate instructions itself and relies
@@ -37,13 +38,15 @@ _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _i64 = ctypes.c_longlong
 # argtypes of every C entry point; they return int unless _RESTYPES says so
 _RESTYPES = {"hla_pair_ll_scratch_floats": _i64}
+# inputs, B, L, W, the four scores, outputs, the launch plan's six ints
+# (ops/cuda_nw.py::NWPlan), the stream
+_NW_FORWARD = [_vp, _vp, _vp, _int, _int, _int,
+               _float, _float, _float, _float,
+               _vp, _vp, _vp, _vp,
+               _int, _int, _int, _int, _int, _int, _vp]
 _ENTRY_POINTS = {
-    "hla_banded_nw_forward": [_vp, _vp, _vp, _int, _int, _int,
-                              _float, _float, _float, _float,
-                              _vp, _vp, _vp, _vp, _vp],
-    "hla_banded_nw_long_forward": [_vp, _vp, _vp, _int, _int, _int,
-                                   _float, _float, _float, _float,
-                                   _vp, _vp, _vp, _vp, _vp],
+    "hla_banded_nw_forward": _NW_FORWARD,
+    "hla_banded_nw_long_forward": _NW_FORWARD,
     "hla_pair_ll_diff": [_vp, _int, _int, _vp, _vp, _i64, _vp],
     "hla_pair_ll_scratch_floats": [_int, _int],
     "hla_pair_ll_read_chunk": [],
@@ -76,13 +79,15 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
-def _digest() -> str:
+def _digest(csrc: Path = CSRC) -> str:
+    """Hash of the flags, the sources and the headers they may include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    headers = [p for pat in ("*.cuh", "*.h") for p in csrc.glob(pat)]
+    for src in _sources(csrc) + sorted(headers):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -190,13 +190,45 @@ class ReadAligner:
         return idx
 
     # ------------------------------------------------------------- NW batch
+    def _host_buffer(self, name: str, shape, dtype,
+                     crosses: bool = False) -> np.ndarray:
+        """A [shape] view of a host buffer the aligner owns, grown only when
+        a call needs more.  A buffer that `crosses` to or from a card is
+        page-locked, so its copy runs at the bus's rate and needs no staging
+        copy; every other, and every buffer on the CPU device, is a plain
+        numpy array."""
+        dtype = np.dtype(dtype)
+        need = int(np.prod(shape)) * dtype.itemsize
+        buf = self._nw_scratch.get(name)
+        if buf is None or buf.nbytes < need:
+            if crosses and self.device.type == "cuda":
+                buf = torch.empty(max(need, 1), dtype=torch.uint8,
+                                  pin_memory=True).numpy()
+            else:
+                buf = np.empty(max(need, 1), dtype=np.uint8)
+            self._nw_scratch[name] = buf
+        return buf[:need].view(dtype).reshape(shape)
+
     def _run_nw(self, reads_arr, lens_arr, refs_arr):
         """The forward pass on self.device; numpy arrays (f32, i32, i32, u8
-        [B, L + 1, W] C-contiguous) for the native backtrace."""
+        [B, L + 1, W] C-contiguous) for the native backtrace.  From a card
+        they come back into the aligner's page-locked buffers, which the
+        next call overwrites: every batch is consumed before the next."""
         out = banded_nw_forward_torch(reads_arr, lens_arr, refs_arr,
                                       self.scoring, self.device)
         self.stats.bump(f"nw_jobs_on_{self.device.type}", len(reads_arr))
-        return tuple(t.cpu().numpy() for t in out)
+        if self.device.type != "cuda":
+            return tuple(t.cpu().numpy() for t in out)
+        host = []
+        for name, dtype, t in zip(
+                ("dev_score", "dev_end_k", "dev_end_state", "dev_pointers"),
+                (np.float32, np.int32, np.int32, np.uint8), out):
+            view = self._host_buffer(name, tuple(t.shape), dtype,
+                                     crosses=True)
+            torch.from_numpy(view).copy_(t, non_blocking=True)
+            host.append(view)
+        torch.cuda.current_stream(self.device).synchronize()
+        return tuple(host)
 
     def _make_jobs(self, pair_idx: int, mate: int, read: FastqRead,
                    cands=None) -> list[_Job]:
@@ -379,21 +411,17 @@ class ReadAligner:
         # staging buffers come from the aligner's scratch pool (no fresh
         # multi-MB allocations per chunk); every buffer is re-filled below
         # and fully consumed before the next batch
-        def stage(name, shape, dtype, fill):
-            need = int(np.prod(shape))
-            buf = self._nw_scratch.get(name)
-            if buf is None or buf.size < need or buf.dtype != dtype:
-                buf = np.empty(max(need, 1), dtype=dtype)
-                self._nw_scratch[name] = buf
-            v = buf[:need].reshape(shape)
+        def stage(name, shape, dtype, fill, crosses=False):
+            v = self._host_buffer(name, shape, dtype, crosses)
             v.fill(fill)
             return v
 
-        reads_arr = stage("st_reads", (B, L), np.uint8, 4)
+        # the three inputs of the forward pass go to the device
+        reads_arr = stage("st_reads", (B, L), np.uint8, 4, crosses=True)
         reads_ascii = stage("st_rascii", (B, L), np.uint8, 0)
         quals_ascii = stage("st_qascii", (B, L), np.uint8, 0)
-        lens_arr = stage("st_lens", (B,), np.int64, 0)
-        refs_arr = stage("st_refs", (B, L + W), np.uint8, 4)
+        lens_arr = stage("st_lens", (B,), np.int64, 0, crosses=True)
+        refs_arr = stage("st_refs", (B, L + W), np.uint8, 4, crosses=True)
         job_seq = stage("st_jseq", (B,), np.int64, 0)
         win_start = stage("st_wstart", (B,), np.int64, 0)
         reverse_arr = stage("st_rev", (B,), bool, 0)

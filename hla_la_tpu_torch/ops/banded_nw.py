@@ -17,8 +17,9 @@ Device half: ``banded_nw_forward_torch`` keeps the same I/O contract: reads
 [B, L] u8 codes 0-3 (>= 4 is N or pad), read_lens [B], refs [B, L + W] u8
 window codes -> (score [B] f32, end_k [B] i32, end_state [B] i32, pointers
 [B, L + 1, W] u8).  A CUDA tensor goes to a kernel by its band: W <= 32 to K1
-(``ops/cuda_nw.py``, one warp per job), W > 32 to K2 (``ops/cuda_nw_long.py``,
-one block per job, for long reads); each raises outside its range.  A CPU
+(``ops/cuda_nw.py``, several jobs per warp), W > 32 to K2
+(``ops/cuda_nw_long.py``, a warp or more per job, for long reads); each
+raises outside its range.  A CPU
 tensor goes to ``banded_nw_plain``, a PyTorch transcription of the
 reference's XLA scan ``make_jax_banded_nw``.  K1 and K2 have one contract, so
 ``banded_nw_plain`` is the plain version of both, for every W.

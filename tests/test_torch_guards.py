@@ -7,6 +7,7 @@ to the CPU, and a CUDA tensor never reaches a plain version."""
 import ast
 import difflib
 import os
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -47,10 +48,13 @@ def _imports(path: Path) -> list[str]:
     return names
 
 
-@pytest.mark.parametrize("rel", PORT_FILES + ["chip_smoke.py"])
+@pytest.mark.parametrize("rel",
+                         PORT_FILES + ["chip_smoke.py", "bench_nw.py"])
 def test_file_imports_neither_jax_nor_the_jax_package(rel):
     roots = {n.split(".")[0] for n in _imports(REPO / rel)}
     assert not roots & FORBIDDEN, (rel, roots & FORBIDDEN)
+    if rel in PORT_FILES:   # the package stands without the root's scripts
+        assert not roots & {"chip_smoke", "bench_nw"}, rel
     text = (REPO / rel).read_text()
     assert "import_module" not in text and "__import__" not in text, rel
 
@@ -417,6 +421,24 @@ def test_kernels_build_inside_the_checkout_or_a_user_cache(tmp_path,
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
     assert _build.build_dir(installed) == tmp_path / "cache" / \
         "hla_la_tpu_torch"
+
+
+@pytest.mark.parametrize("suffix", [".cu", ".cuh", ".h"])
+def test_build_digest_follows_sources_and_headers(tmp_path, suffix):
+    """An edit to a source or to a header beside it (the NW kernels share
+    csrc/banded_nw_row.cuh) gives the library another name, so it is
+    rebuilt."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == \
+        ["banded_nw_row.cuh"]
+    before = _build._digest(csrc)
+    assert before == _build._digest(_build.CSRC) == _build._digest()
+    target = next(iter(sorted(csrc.glob("*" + suffix))), csrc / ("new" + suffix))
+    with open(target, "a") as fh:
+        fh.write("// edited\n")
+    assert _build._digest(csrc) != before
+    assert len({p.name for p in _build._sources(csrc)}) == 3
 
 
 def test_failed_build_raises_and_leaves_no_objects(tmp_path, monkeypatch):

@@ -95,6 +95,51 @@ def test_aligner_long_band_runs_plain_nw(align_world, monkeypatch):
         _fields_equal(x.chain2, y.chain2)
 
 
+def test_cpu_aligner_pins_no_memory_and_returns_the_plain_arrays(
+        align_world, monkeypatch):
+    """On the CPU device the aligner's host buffers are plain numpy arrays
+    (nothing is page-locked) and _run_nw hands back what the plain forward
+    computes, as C-contiguous numpy arrays of the native backtrace's
+    types."""
+    pkg, fq = align_world
+    empty = torch.empty
+
+    def no_pinning(*args, **kwargs):
+        assert not kwargs.get("pin_memory"), "page-locked memory on the CPU"
+        return empty(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", no_pinning)
+    port = TorchReadAligner(pkg, device="cpu")
+    seen = []
+    run_nw = port._run_nw
+
+    def keeping(reads_arr, lens_arr, refs_arr):
+        out = run_nw(reads_arr, lens_arr, refs_arr)
+        want = port_nw.banded_nw_plain(
+            torch.from_numpy(reads_arr.copy()),
+            torch.from_numpy(lens_arr.copy()),
+            torch.from_numpy(refs_arr.copy()), port.scoring)
+        for a, t in zip(out, want):
+            assert isinstance(a, np.ndarray) and a.flags.c_contiguous
+            np.testing.assert_array_equal(a, t.numpy())
+        seen.append([a.dtype for a in out])
+        return out
+
+    monkeypatch.setattr(port, "_run_nw", keeping)
+    got = port.align_pairs(fq[:30], insert_mean=260, insert_sd=25)
+    assert got and seen
+    assert all(d == [np.float32, np.int32, np.int32, np.uint8] for d in seen)
+    assert port._nw_scratch
+    for name, buf in port._nw_scratch.items():
+        assert isinstance(buf, np.ndarray), name
+        assert not torch.from_numpy(buf[:1]).is_pinned() \
+            if buf.dtype == np.uint8 else True, name
+    # the staged arrays are views of those buffers, reused by the next call
+    v1 = port._host_buffer("st_reads", (4, 10), np.uint8)
+    v2 = port._host_buffer("st_reads", (2, 8), np.uint8)
+    assert np.shares_memory(v1, v2)
+
+
 def _count_nw_calls(aligner, monkeypatch):
     """Jobs of each NW call the aligner makes from now on."""
     calls = []
