@@ -46,11 +46,34 @@ and no result line is printed:
       K3 is then held against its plain version at each locus's C x R, as
       in (d);
   (i) the same recipe at a small size (backbone 6,000, 60 alleles, 2 kb
-      reads at 20x) on cuda against the CPU, as (f).
+      reads at 20x) on cuda against the CPU, as (f);
+  (j) the kernels at the shapes of the linear-ALT (KIR) and assembly (ASM)
+      typers: K1 at the KIR run's NW call, 65,536 x 100 x 32, with a
+      quarter of the windows off a haplotype's left or right end; K2 at one
+      exon of the ASM world, 2,200 alleles x the longest allele x 48, under
+      the unit scoring (match 0, every penalty -1: ties everywhere), ragged
+      lengths against one shared window; both bit-identical to the plain
+      version on live rows; K3 at C = 32 and C = 6 haplotypes with
+      R = 22,500 and R = 45,000, as in (d);
+  (k) ``--action KIR --BAM ... --device cuda`` on a linear-ALT package of
+      32 haplotypes of 150 kb with 14 genes and paired 100 bp reads at 15x
+      from two planted haplotypes: the planted pair called with posterior
+      > 0.9, reads2Genes at least 90% right against the simulator's truth,
+      no read from outside the covered region, every NW job on the card in
+      calls of jobs_per_call jobs, K1 and K3 launched.  K3 is then held
+      against its plain version at the run's C x R;
+  (l) ``--action ASM --device cuda`` on the world of (e) with two contigs
+      cut from the planted haplotypes, one reverse-complemented: each
+      contig's call holds its planted allele at edit distance 0,
+      genePositions.tab puts every exon on its contig's strand, K2
+      launched;
+  (m) small KIR and ASM worlds on cuda against the CPU: calls, reads2Genes,
+      summary.txt and genePositions.tab equal, posterior within 1e-3.
 
 The last two lines are the card's name and power limit, and
 {"ok": true, "device": {...}}; the line before them is the kernels' JSON
-record, one entry per kernel and main path (K3 runs on both), with the
+record, one entry per kernel and main path (K1 and K2 run on two, K3 on
+three), with the
 launches of that path's run and the kernel's time beside its bound: the
 larger of its bytes (inputs read once, outputs written once) over the card's
 memory rate and its operations over the card's peak rate for their type.
@@ -106,6 +129,13 @@ NW_LONG_CPU = NW_LONG_SHAPES[2]
 LONG_W = 256                    # the aligner's band in long-read mode
 SMALL_LONG_WORLD = {"backbone": 6000, "n_alleles": 60, "coverage": 20.0,
                     "read_length": 2000}
+KIR_L, KIR_W = 100, 32          # the KIR world's reads, LinearALTsTyper.band
+ASM_W = 48                      # AssemblyTyper.band
+EDIT_SCORING = {"match": 0.0, "mismatch": -1.0, "gap_open": -1.0,
+                "gap_extend": -1.0}     # models/asm.py::EDIT_SCORING
+KIR_PAIR_SHAPES = ((32, 22500), (32, 45000), (6, 22500), (6, 45000))
+POSTERIOR_MIN, R2G_MIN = 0.9, 0.9       # the KIR self-test's bars
+SMALL_KIR_WORLD = {"length": 12000, "coverage": 10.0}
 
 
 def phase(name: str) -> None:
@@ -225,6 +255,42 @@ def nw_world(rng, B: int, L: int, W: int, ref_n_rate: float = 0.002):
     return reads, lens, refs
 
 
+def kir_nw_world(rng, B: int, L: int, W: int):
+    """The linear-ALT typer's jobs: nw_world's reads and refs, with every
+    eighth window off its haplotype's left end (pad codes up to W / 2
+    columns in) and every eighth off its right end (pad codes from
+    somewhere past the band's middle on)."""
+    import numpy as np
+    reads, lens, refs = nw_world(rng, B, L, W)
+    col = np.arange(L + W)[None, :]
+    left = np.arange(B) % 8 == 1
+    right = np.arange(B) % 8 == 5
+    refs[left[:, None] & (col < rng.integers(1, W // 2 + 1, B)[:, None])] = 4
+    refs[right[:, None]
+         & (col >= rng.integers(W // 2 + 4, L + W, B)[:, None])] = 4
+    return reads, lens, refs
+
+
+def exon_nw_world(rng, B: int, L: int, W: int):
+    """The assembly typer's jobs: B allele sequences of ragged lengths
+    (pad code 4 past each), all against ONE contig window; an allele
+    differs from the window by a few substitutions, every fourth also by a
+    one-base deletion."""
+    import numpy as np
+    window = rng.integers(0, 4, L + W).astype(np.uint8)
+    src = W // 2 + np.arange(L)[None, :] + np.zeros((B, 1), np.int64)
+    cut = rng.integers(1, L - 1, B)
+    gone = ((np.arange(B) % 4 == 3)[:, None]
+            & (np.arange(L)[None, :] >= cut[:, None]))
+    reads = window[np.minimum(src + gone, L + W - 1)]
+    sub = rng.random((B, L)) < 0.01
+    reads[sub] = rng.integers(0, 4, int(sub.sum()))
+    lens = rng.integers(L - L // 8, L + 1, B).astype(np.int64)
+    lens[0] = L
+    reads[np.arange(L)[None, :] >= lens[:, None]] = 4
+    return reads, lens, np.repeat(window[None], B, axis=0)
+
+
 def hold_nw(kernel: str, shape: str, got, others: dict) -> tuple:
     """Fail unless the kernel's outputs `got` equal every plain version's in
     `others` on the live rows (score > -1e29 in the first); returns (live
@@ -243,16 +309,18 @@ def hold_nw(kernel: str, shape: str, got, others: dict) -> tuple:
     return int(live.sum()), float(np.abs(got[0][live] - first[0][live]).max())
 
 
-def check_nw(B: int, L: int, W: int, record: dict | None) -> None:
+def check_nw(B: int, L: int, W: int, record: dict | None,
+             make_world=nw_world) -> None:
     """K1 against the plain version on the card (and, at NW_CPU, on the
-    CPU); the times go into `record` if one is given."""
+    CPU) on make_world's jobs; the times go into `record` if one is
+    given."""
     import numpy as np
     import torch
     from hla_la_tpu_torch.ops.banded_nw import DEFAULT_SCORING as sc
     from hla_la_tpu_torch.ops.banded_nw import banded_nw_plain
     from hla_la_tpu_torch.ops.cuda_nw import banded_nw_cuda
 
-    reads, lens, refs = nw_world(np.random.default_rng(B + L + W), B, L, W)
+    reads, lens, refs = make_world(np.random.default_rng(B + L + W), B, L, W)
     host = [torch.from_numpy(a) for a in (reads, lens, refs)]
     args = tuple(t.cuda() for t in host) + (sc,)
     got = [t.cpu().numpy() for t in banded_nw_cuda(*args)]
@@ -293,20 +361,28 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
-def check_nw_long(B: int, L: int, W: int, record: dict | None) -> None:
+def check_nw_long(B: int, L: int, W: int, record: dict | None,
+                  unit_scoring: bool = False) -> None:
     """K2 against the plain version on the card (and, at NW_LONG_CPU, on
     the CPU); the times go into `record` if one is given.  The plain
     version's row loop takes seconds at the long shapes, so its one checked
-    call is also its timed one."""
+    call is also its timed one.  With `unit_scoring`: the assembly typer's
+    jobs and scoring, and the live jobs' edit distances must differ."""
     import numpy as np
     import torch
-    from hla_la_tpu_torch.ops.banded_nw import DEFAULT_SCORING as sc
+    from hla_la_tpu_torch.ops.banded_nw import DEFAULT_SCORING
     from hla_la_tpu_torch.ops.banded_nw import banded_nw_plain
     from hla_la_tpu_torch.ops.cuda_nw_long import banded_nw_long_cuda
 
-    # K1's world has 0.27 ref N per job; so has this one at every length
-    reads, lens, refs = nw_world(np.random.default_rng(B * L + W), B, L, W,
-                                 ref_n_rate=0.27 / (L + W))
+    rng = np.random.default_rng(B * L + W)
+    if unit_scoring:
+        sc = EDIT_SCORING
+        reads, lens, refs = exon_nw_world(rng, B, L, W)
+    else:
+        sc = DEFAULT_SCORING
+        # K1's world has 0.27 ref N per job; so has this one at every length
+        reads, lens, refs = nw_world(rng, B, L, W,
+                                     ref_n_rate=0.27 / (L + W))
     host = [torch.from_numpy(a) for a in (reads, lens, refs)]
     args = tuple(t.cuda() for t in host) + (sc,)
     got = [t.cpu().numpy() for t in banded_nw_long_cuda(*args)]
@@ -319,6 +395,9 @@ def check_nw_long(B: int, L: int, W: int, record: dict | None) -> None:
                                       banded_nw_plain(*host, sc)]
     shape = f"B={B} L={L} W={W}"
     n_live, err = hold_nw("K2", shape, got, others)
+    if unit_scoring and (n_live < B or len(set(got[0].tolist())) < 4):
+        fail(f"K2 at {shape} under unit scoring: {n_live}/{B} live jobs, "
+             f"distances {sorted(set(got[0].tolist()))[:8]}")
     names = " and ".join(others)
     del others
     again = banded_nw_long_cuda(*args)
@@ -329,7 +408,8 @@ def check_nw_long(B: int, L: int, W: int, record: dict | None) -> None:
     ms = cuda_ms(lambda: banded_nw_long_cuda(*args), reps=5)
     gcells = B * L * W / (ms * 1e-3) / 1e9
     bound = nw_bound(B, L, W)
-    print(f"K2 {shape}: bit-identical to the {names} on {n_live}/{B} live "
+    print(f"K2 {shape}{' under unit scoring' if unit_scoring else ''}: "
+          f"bit-identical to the {names} on {n_live}/{B} live "
           f"rows, and across reruns; kernel {ms:.4f} ms ({gcells:.2f} "
           f"Gcells/s, {100 * bound['bound_ms'] / ms:.1f}% of the "
           f"{bound['bound_by']} bound {bound['bound_ms']:.4f} ms), plain "
@@ -487,6 +567,136 @@ def run_port(device: str, world, out_dir: str) -> dict:
             "loci": {lc: (int(c), int(r)) for lc, c, r in loci}}
 
 
+def run_action(action: str, device: str, world, out_dir: str) -> dict:
+    """Run `action` (KIR or ASM) of the port's CLI on `world` and `device`;
+    the kernels' launch counters are zeroed just before the run and read
+    just after it.  Every NW job the typer made must have run on
+    `device`."""
+    from hla_la_tpu_torch.cli import main as port_main
+    from hla_la_tpu_torch.ops.cuda_nw import banded_nw_cuda
+    from hla_la_tpu_torch.ops.cuda_nw_long import banded_nw_long_cuda
+    from hla_la_tpu_torch.ops.cuda_pair import pair_ll_diff_cuda
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--action", action, *world.cli_args(), "--sampleID", "S1",
+            "--outputDirectory", out_dir, "--device", device]
+    if action == "ASM":
+        argv += ["--graph", world.graph]
+    log, out = io.StringIO(), io.StringIO()
+    kernels = {"K1": banded_nw_cuda, "K2": banded_nw_long_cuda,
+               "K3": pair_ll_diff_cuda}
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(_Tee(sys.stderr, log)), \
+            contextlib.redirect_stdout(_Tee(sys.stdout, out)):
+        rc = port_main(argv)
+    if device == "cuda":
+        sync()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    if rc != 0:
+        fail(f"--action {action} on {device} failed (rc {rc})")
+    m_jobs = re.search(r"n_chain_extensions: (\d+)", log.getvalue())
+    m_dev = re.search(rf"nw_jobs_on_{device}: (\d+)", log.getvalue())
+    if not (m_jobs and m_dev and int(m_jobs.group(1)) > 0
+            and m_dev.group(1) == m_jobs.group(1)):
+        fail(f"--action {action}: not every NW job ran on {device}")
+    return {"dir": out_dir, "launches": launches, "wall_s": wall,
+            "nw_jobs": int(m_jobs.group(1)), "stdout": out.getvalue()}
+
+
+def kir_outputs(res: dict) -> tuple[list[str], float, dict]:
+    """(called pair, posterior, gene -> read names) of a KIR run."""
+    row = read_table(os.path.join(res["dir"], "KIR_haplotypes.txt"))[1]
+    r2g = {g: ids.split(",") if ids else [] for g, _, ids in
+           read_table(os.path.join(res["dir"], "reads2Genes.txt"))[1:]}
+    return row[:2], float(row[2]), r2g
+
+
+def check_kir(res: dict, world) -> None:
+    """The planted pair called with posterior > POSTERIOR_MIN; reads2Genes
+    right for at least R2G_MIN of the assigned reads whose source span
+    overlaps a gene (the bar of the KIRsimulation self-test); no read from
+    outside the covered region."""
+    pair, posterior, r2g = kir_outputs(res)
+    if sorted(pair) != sorted(world.truth):
+        fail(f"KIR: called {pair}, planted {world.truth}")
+    if not POSTERIOR_MIN < posterior <= 1.0:
+        fail(f"KIR: posterior {posterior} outside ({POSTERIOR_MIN}, 1]")
+    truth = world.true_genes()
+    n_ok = n_tot = 0
+    for gene, names in r2g.items():
+        if any(n.startswith("far") for n in names):
+            fail(f"KIR: a read from outside the covered region in {gene}")
+        known = [n for n in names if n in truth]
+        n_tot += len(known)
+        n_ok += sum(gene in truth[n] for n in known)
+    if n_tot < world.n_pairs or n_ok < R2G_MIN * n_tot:
+        fail(f"KIR: reads2Genes right for {n_ok}/{n_tot} reads")
+    print(f"KIR: called {pair} (planted), posterior {posterior:.6f}; "
+          f"reads2Genes right for {n_ok}/{n_tot} reads over "
+          f"{len(r2g)} genes")
+
+
+def asm_outputs(res: dict) -> tuple[list, list]:
+    return (read_table(os.path.join(res["dir"], "summary.txt")),
+            read_table(os.path.join(res["dir"], "genePositions.tab")))
+
+
+def check_asm(res: dict, world) -> None:
+    """Each contig's call of each locus holds its planted allele at edit
+    distance 0, also against the truth table; genePositions.tab has both
+    exons of every call on the contig's strand, located on a package
+    haplotype."""
+    summary, positions = asm_outputs(res)
+    rows = {(r[0], r[1]): r for r in summary[1:]}
+    for contig, planted in world.truth.items():
+        for locus, allele in planted.items():
+            r = rows.get((contig, locus))
+            if r is None:
+                fail(f"ASM: no call of {locus} on {contig}")
+            if allele not in r[2].split(";") or r[4] != "0":
+                fail(f"ASM: {contig} {locus}: called {r[2][:60]} at edit "
+                     f"distance {r[4]}, planted {allele}")
+            if r[5] != "0" or allele not in r[7].split(";"):
+                fail(f"ASM: {contig} {locus}: truth columns {r[5:9]}")
+            exons = [p for p in positions[1:]
+                     if p[0] == locus and p[2] == contig]
+            if len(exons) != 2 or any(
+                    p[5] != world.strands[contig] or not p[6]
+                    or int(p[7]) < 0 for p in exons):
+                fail(f"ASM: {contig} {locus}: exon rows {exons}")
+    if len(rows) != sum(len(p) for p in world.truth.values()):
+        fail(f"ASM: {len(rows)} calls, expected one per contig and locus")
+    print("ASM: " + "; ".join(
+        f"{c} {lc} {r[2].split(';')[0]}{'+' if ';' in r[2] else ''} ED={r[4]}"
+        f" ({world.strands[c]})" for (c, lc), r in sorted(rows.items())))
+
+
+def compare_kir_asm_devices(kir, asm) -> None:
+    """Small KIR and ASM worlds: the port's CLI on cuda against the CPU."""
+    runs = {(a, dev): run_action(a, dev, w, os.path.join(
+                WORLD_DIR, "runs", f"small_{a}_{dev}"))
+            for a, w in (("KIR", kir), ("ASM", asm))
+            for dev in ("cuda", "cpu")}
+    got, want = (kir_outputs(runs["KIR", dev]) for dev in ("cuda", "cpu"))
+    if got[0] != want[0] or got[2] != want[2]:
+        fail(f"small KIR world: cuda called {got[0]}, the CPU {want[0]}, "
+             f"reads2Genes {'equal' if got[2] == want[2] else 'differ'}")
+    if abs(got[1] - want[1]) > Q_TOL:
+        fail(f"small KIR world: posterior {got[1]} vs {want[1]}")
+    check_kir(runs["KIR", "cuda"], kir)
+    if asm_outputs(runs["ASM", "cuda"]) != asm_outputs(runs["ASM", "cpu"]):
+        fail("small ASM world: summary.txt or genePositions.tab differ")
+    check_asm(runs["ASM", "cuda"], asm)
+    print("small KIR and ASM worlds: cuda and CPU runs agree (calls, "
+          f"reads2Genes, summary.txt, genePositions.tab identical; "
+          f"|d posterior| {abs(got[1] - want[1]):.3g}); "
+          + ", ".join(f"{a} {dev} {r['wall_s']:.3f} s"
+                      for (a, dev), r in runs.items()))
+
+
 def check_launched(res: dict, names) -> None:
     for name in names:
         if res["launches"][name] <= 0:
@@ -569,36 +779,10 @@ def check_same_run(got: dict, want: dict) -> float:
     return q_err
 
 
-def main() -> int:
-    try:
-        import torch
-        import hla_la_tpu_torch  # noqa: F401
-    except ImportError as exc:
-        print(f"FAIL: {exc} (run from a checkout of the repository)",
-              file=sys.stderr)
-        return 1
-    if not torch.cuda.is_available():
-        print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
-        return 1
-    from hla_la_tpu_torch import _build
-    from hla_la_tpu_torch.device import resolve
-    from hla_la_tpu_torch.models.aligner import jobs_per_call
-    from hla_la_tpu_torch.sim import (LONG_READ_LENGTH, long_read_world,
-                                      typing_world)
-    resolve("cuda")
-    t_start = time.perf_counter()
-
-    phase("(a) toolchain")
-    smi = toolchain()
-
-    phase("(b) build")
-    t0 = time.perf_counter()
-    lib = _build.library()
-    print(f"built {lib.path} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {lib.build_s:.1f} s)")
-    print(lib.log.strip())
-
+def kernel_records() -> dict:
+    """One record per kernel and main path, to be filled by the phases."""
     short, long_ = "short reads, phase (e)", "long reads, phase (h)"
+    kir, asm = "linear-ALT typing, phase (k)", "assembly typing, phase (l)"
     nw = {"name": "banded_nw", "path": short, "route": "cuda",
           "source": "hla_la_tpu_torch/csrc/banded_nw.cu",
           "replaces": "hla_la_tpu/ops/pallas_nw.py:264"}
@@ -608,7 +792,18 @@ def main() -> int:
     pair = {"name": "pair_ll_diff", "path": short, "route": "cuda",
             "source": "hla_la_tpu_torch/csrc/pair_ll.cu",
             "replaces": "hla_la_tpu/ops/pallas_pair.py:85"}     # and :138
-    pair_long = {**pair, "path": long_}
+    return {"nw": nw, "pair": pair, "nw_long": nw_long,
+            "pair_long": {**pair, "path": long_},
+            "nw_kir": {**nw, "path": kir}, "pair_kir": {**pair, "path": kir},
+            "nw_asm": {**nw_long, "path": asm}}
+
+
+def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> None:
+    """Phases (c)-(i): the kernels at --action HLA's shapes and its two
+    main paths."""
+    from hla_la_tpu_torch.models.aligner import jobs_per_call
+    from hla_la_tpu_torch.sim import (LONG_READ_LENGTH, long_read_world,
+                                      typing_world)
 
     phase("(c) K1 banded NW vs plain")
     for shape in NW_SHAPES:
@@ -669,8 +864,105 @@ def main() -> int:
                     "small long-read", exact=True)
     sync()
 
+
+def kir_asm_phases(nw_kir: dict, pair_kir: dict, nw_asm: dict) -> None:
+    """Phases (j)-(m): the kernels at the shapes of --action KIR and
+    --action ASM, and those two main paths."""
+    from hla_la_tpu_torch.graph.package import GraphPackage
+    from hla_la_tpu_torch.models.aligner import jobs_per_call
+    from hla_la_tpu_torch.models.asm import AssemblyTyper
+    from hla_la_tpu_torch.models.kir_package import KirPackage
+    from hla_la_tpu_torch.sim import asm_world, kir_world
+
+    phase("(j) K1, K2, K3 at the linear-ALT and assembly typers' shapes")
+    kir_B = jobs_per_call(KIR_L, KIR_W)
+    check_nw(kir_B, KIR_L, KIR_W, nw_kir, make_world=kir_nw_world)
+    world_asm = asm_world(WORLD_DIR)
+    exons = [alleles for per_exon in AssemblyTyper(
+                 GraphPackage(world_asm.graph), device="cuda"
+             ).allele_db.values() for alleles in per_exon.values()]
+    asm_B = max(len(a) for a in exons)
+    asm_L = max(len(s) for a in exons for s in a.values())
+    print(f"assembly world: {len(exons)} exons of up to {asm_B} alleles, "
+          f"the longest {asm_L} bases")
+    check_nw_long(asm_B, asm_L, ASM_W, nw_asm, unit_scoring=True)
+    for C, R in KIR_PAIR_SHAPES:
+        check_pair(C, R, {})
+    sync()
+
+    phase("(k) --action KIR on cuda: 32 haplotypes of 150 kb, reads at 15x")
+    t0 = time.perf_counter()
+    world_kir = kir_world(WORLD_DIR)
+    print(f"world ready in {time.perf_counter() - t0:.1f} s: "
+          f"{world_kir.panel}; {world_kir.n_pairs} pairs from "
+          f"{world_kir.truth}")
+    res = run_action("KIR", "cuda", world_kir,
+                     os.path.join(WORLD_DIR, "runs", "kir_cuda"))
+    check_launched(res, ("K1", "K3"))
+    check_kir(res, world_kir)
+    # calls of jobs_per_call jobs, not one per read: two passes over the
+    # reads (the pair model, reads2Genes), each ending in a partial call
+    if res["launches"]["K1"] > res["nw_jobs"] / kir_B + 2:
+        fail(f"KIR: {res['launches']['K1']} K1 launches for "
+             f"{res['nw_jobs']} NW jobs of {kir_B} per call")
+    print(f"port on cuda, --action KIR: whole CLI {res['wall_s']:.3f} s, "
+          f"{res['nw_jobs']} NW jobs on the card ({kir_B} per call); "
+          f"launches {res['launches']}")
+    nw_kir["launches"] = res["launches"]["K1"]
+    pair_kir["launches"] = res["launches"]["K3"]
+    check_pair(len(KirPackage.load(world_kir.panel).haplotypes),
+               world_kir.n_pairs, pair_kir)     # the run's C x R
+    sync()
+
+    phase("(l) --action ASM on cuda: two contigs, 2,200 alleles per locus")
+    res = run_action("ASM", "cuda", world_asm,
+                     os.path.join(WORLD_DIR, "runs", "asm_cuda"))
+    check_launched(res, ("K2",))
+    check_asm(res, world_asm)
+    print(f"port on cuda, --action ASM: whole CLI {res['wall_s']:.3f} s, "
+          f"{res['nw_jobs']} NW jobs on the card; launches "
+          f"{res['launches']}")
+    nw_asm["launches"] = res["launches"]["K2"]
+    sync()
+
+    phase("(m) small KIR and ASM worlds: the port's CLI on cuda vs the CPU")
+    compare_kir_asm_devices(kir_world(WORLD_DIR, **SMALL_KIR_WORLD),
+                            asm_world(WORLD_DIR, **SMALL_WORLD))
+    sync()
+
+
+def main() -> int:
+    try:
+        import torch
+        import hla_la_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"FAIL: {exc} (run from a checkout of the repository)",
+              file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from hla_la_tpu_torch import _build
+    from hla_la_tpu_torch.device import resolve
+    resolve("cuda")
+    t_start = time.perf_counter()
+
+    phase("(a) toolchain")
+    smi = toolchain()
+
+    phase("(b) build")
+    t0 = time.perf_counter()
+    lib = _build.library()
+    print(f"built {lib.path} in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {lib.build_s:.1f} s)")
+    print(lib.log.strip())
+
+    rec = kernel_records()
+    hla_phases(rec["nw"], rec["pair"], rec["nw_long"], rec["pair_long"])
+    kir_asm_phases(rec["nw_kir"], rec["pair_kir"], rec["nw_asm"])
+
     print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [nw, pair, nw_long, pair_long]}))
+    print(json.dumps({"kernels": list(rec.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,17 @@
 A package of its own beside the reference JAX package: it imports ``torch``
 and numpy, never ``jax`` and nothing of ``hla_la_tpu``.  It covers the
 ``--action HLA`` path on paired short reads and on long reads
-(``--longReads``), with the same directory layout and module names as the
+(``--longReads``), linear-ALT typing (``--action KIR``) and assembly typing
+(``--action ASM``), with the same directory layout and module names as the
 reference, so each module has its counterpart there:
 
-  cli               the ``--action HLA`` entry point (``--device cuda|cpu``)
-  models/           pipeline (run_hla_typing), aligner (ReadAligner), typer
-                    (HLATyper), graph-alignment records and the graph-DP
-                    fallback
+  cli               the entry point (``--action HLA|KIR|ASM|...``,
+                    ``--device cuda|cpu``)
+  models/           pipeline (run_hla_typing), aligner (ReadAligner, and
+                    NWRunner, the NW forward for host callers), typer
+                    (HLATyper), linear_alts (LinearALTsTyper), kir_package,
+                    asm (AssemblyTyper), graph-alignment records and the
+                    graph-DP fallback
   ops/banded_nw     NW forward: kernel K1 (W <= 32) or K2 (W > 32) on
                     CUDA, plain PyTorch on CPU; numpy forward and backtrace
   ops/pair_ll       likelihood model: matmul + kernel K3 / plain PyTorch

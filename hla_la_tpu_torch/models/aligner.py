@@ -62,6 +62,107 @@ def jobs_per_call(L: int, W: int, max_jobs: int = MAX_JOBS) -> int:
     return max(1, min(max_jobs, NW_POINTER_BUDGET // ((L + 1) * W)))
 
 
+def gather_ref_windows(enc_cat: np.ndarray, hap_offsets: np.ndarray,
+                       hap_lens: np.ndarray, job_seq: np.ndarray,
+                       win_start: np.ndarray, width: int,
+                       out: np.ndarray) -> None:
+    """out[b] = the `width` codes of haplotype job_seq[b] from win_start[b]
+    on, cut from the encoded concatenated haplotypes; columns outside the
+    haplotype get the padding code 4.  Per-job clamped memcpy (native),
+    else one global numpy gather."""
+    from .. import native
+    gw = (native.gather_windows(enc_cat, hap_offsets, hap_lens, job_seq,
+                                win_start, width)
+          if native.available() else None)
+    if gw is not None:
+        out[:] = gw
+        return
+    pos = win_start[:, None] + np.arange(width)
+    in_range = (pos >= 0) & (pos < hap_lens[job_seq, None])
+    gp = hap_offsets[job_seq, None] + np.where(in_range, pos, 0)
+    out[:] = np.where(in_range, enc_cat[gp], 4)
+
+
+class NWRunner:
+    """The banded NW forward for host callers, shared by the read aligner
+    and the linear-ALT and assembly typers: numpy job arrays go to `device`
+    (K1 or K2 on a card by the band, the plain version on the CPU) and
+    numpy results come back, from a card through page-locked buffers the
+    runner owns.  `stats` counts the jobs as ``nw_jobs_on_<device>``."""
+
+    def __init__(self, device: str | torch.device,
+                 scoring: dict = DEFAULT_SCORING, stats: Stats | None = None):
+        self.device = resolve(device)
+        self.scoring = scoring
+        self.stats = Stats() if stats is None else stats
+        self.scratch: dict = {}
+
+    def host_buffer(self, name: str, shape, dtype,
+                    crosses: bool = False) -> np.ndarray:
+        """A [shape] view of a host buffer the runner owns, grown only when
+        a call needs more.  A buffer that `crosses` to or from a card is
+        page-locked, so its copy runs at the bus's rate and needs no staging
+        copy; every other, and every buffer on the CPU device, is a plain
+        numpy array."""
+        dtype = np.dtype(dtype)
+        need = int(np.prod(shape)) * dtype.itemsize
+        buf = self.scratch.get(name)
+        if buf is None or buf.nbytes < need:
+            if crosses and self.device.type == "cuda":
+                buf = torch.empty(max(need, 1), dtype=torch.uint8,
+                                  pin_memory=True).numpy()
+            else:
+                buf = np.empty(max(need, 1), dtype=np.uint8)
+            self.scratch[name] = buf
+        return buf[:need].view(dtype).reshape(shape)
+
+    def run(self, reads_arr, lens_arr, refs_arr, pointers: bool = True):
+        """One forward call: (score f32, end_k i32, end_state i32, pointers
+        u8 [B, L + 1, W] C-contiguous, or None unless `pointers`) as numpy
+        arrays.  From a card they come back into the runner's page-locked
+        buffers, which the next call overwrites: every batch is consumed
+        before the next.  The pointer tensor, by far the largest, is copied
+        only when asked for."""
+        out = banded_nw_forward_torch(reads_arr, lens_arr, refs_arr,
+                                      self.scoring, self.device)
+        self.stats.bump(f"nw_jobs_on_{self.device.type}", len(reads_arr))
+        if not pointers:
+            out = out[:3]
+        if self.device.type != "cuda":
+            host = [t.cpu().numpy() for t in out]
+        else:
+            host = []
+            for name, dtype, t in zip(
+                    ("dev_score", "dev_end_k", "dev_end_state",
+                     "dev_pointers"),
+                    (np.float32, np.int32, np.int32, np.uint8), out):
+                view = self.host_buffer(name, tuple(t.shape), dtype,
+                                        crosses=True)
+                torch.from_numpy(view).copy_(t, non_blocking=True)
+                host.append(view)
+            torch.cuda.current_stream(self.device).synchronize()
+        return tuple(host) if pointers else (*host, None)
+
+    def run_jobs(self, reads_arr, lens_arr, refs_arr, pointers: bool = True):
+        """The forward pass over any number of jobs, in calls of
+        jobs_per_call(L, W) jobs: yields (lo, hi, results of run() for jobs
+        lo..hi).  Each yield's arrays are overwritten by the next call."""
+        n, L = reads_arr.shape
+        step = jobs_per_call(L, refs_arr.shape[1] - L)
+        for lo in range(0, n, step):
+            hi = min(lo + step, n)
+            yield lo, hi, self.run(reads_arr[lo:hi], lens_arr[lo:hi],
+                                   refs_arr[lo:hi], pointers)
+
+    def scores(self, reads_arr, lens_arr, refs_arr) -> np.ndarray:
+        """The final scores [n] alone, no pointer tensor copied."""
+        out = np.empty(len(reads_arr), dtype=np.float32)
+        for lo, hi, res in self.run_jobs(reads_arr, lens_arr, refs_arr,
+                                         pointers=False):
+            out[lo:hi] = res[0]
+        return out
+
+
 def _longest(all_reads, job_read) -> int:
     return max((len(all_reads[r].seq) for r in set(job_read.tolist())),
                default=0)
@@ -149,6 +250,7 @@ class ReadAligner:
             # 32 → 0.90+ at 160+.
             self.band = 256
         self.stats = Stats()
+        self._nw = NWRunner(self.device, self.scoring, self.stats)
         self.graph_fallback = graph_fallback
         self._realigner = None
         # paralog defense (mapAgainstCompleteGenome equivalent,
@@ -157,7 +259,7 @@ class ReadAligner:
         # reuse pool of the staging buffers and the native backtrace ops,
         # which would otherwise be freshly allocated per batch; each batch
         # is fully consumed (projected) before the next starts
-        self._nw_scratch: dict = {}
+        self._nw_scratch = self._nw.scratch
 
     def _load_or_build_index(self, kmer_k: int) -> KmerIndex:
         """Disk-cached k-mer index in the package dir (freshness rule as for
@@ -192,43 +294,12 @@ class ReadAligner:
     # ------------------------------------------------------------- NW batch
     def _host_buffer(self, name: str, shape, dtype,
                      crosses: bool = False) -> np.ndarray:
-        """A [shape] view of a host buffer the aligner owns, grown only when
-        a call needs more.  A buffer that `crosses` to or from a card is
-        page-locked, so its copy runs at the bus's rate and needs no staging
-        copy; every other, and every buffer on the CPU device, is a plain
-        numpy array."""
-        dtype = np.dtype(dtype)
-        need = int(np.prod(shape)) * dtype.itemsize
-        buf = self._nw_scratch.get(name)
-        if buf is None or buf.nbytes < need:
-            if crosses and self.device.type == "cuda":
-                buf = torch.empty(max(need, 1), dtype=torch.uint8,
-                                  pin_memory=True).numpy()
-            else:
-                buf = np.empty(max(need, 1), dtype=np.uint8)
-            self._nw_scratch[name] = buf
-        return buf[:need].view(dtype).reshape(shape)
+        return self._nw.host_buffer(name, shape, dtype, crosses)
 
     def _run_nw(self, reads_arr, lens_arr, refs_arr):
-        """The forward pass on self.device; numpy arrays (f32, i32, i32, u8
-        [B, L + 1, W] C-contiguous) for the native backtrace.  From a card
-        they come back into the aligner's page-locked buffers, which the
-        next call overwrites: every batch is consumed before the next."""
-        out = banded_nw_forward_torch(reads_arr, lens_arr, refs_arr,
-                                      self.scoring, self.device)
-        self.stats.bump(f"nw_jobs_on_{self.device.type}", len(reads_arr))
-        if self.device.type != "cuda":
-            return tuple(t.cpu().numpy() for t in out)
-        host = []
-        for name, dtype, t in zip(
-                ("dev_score", "dev_end_k", "dev_end_state", "dev_pointers"),
-                (np.float32, np.int32, np.int32, np.uint8), out):
-            view = self._host_buffer(name, tuple(t.shape), dtype,
-                                     crosses=True)
-            torch.from_numpy(view).copy_(t, non_blocking=True)
-            host.append(view)
-        torch.cuda.current_stream(self.device).synchronize()
-        return tuple(host)
+        """The forward pass on self.device (NWRunner.run): numpy arrays
+        for the native backtrace, overwritten by the next call."""
+        return self._nw.run(reads_arr, lens_arr, refs_arr)
 
     def _make_jobs(self, pair_idx: int, mate: int, read: FastqRead,
                    cands=None) -> list[_Job]:
@@ -453,25 +524,11 @@ class ReadAligner:
         win_start[:nb] = win_start_in
         reverse_arr[:nb] = reverse_in
         prg_id_arr[:nb] = np.asarray(self.prg_ids)[job_seq[:nb]]
-        # reference windows: per-job clamped memcpy from the encoded
-        # concatenated haplotypes (native), else one global numpy gather
-        # (out-of-range columns stay the padding code 4)
+        # reference windows
         if len(self.hap_codes_cat):
-            from .. import native
-            gw = (native.gather_windows(self.hap_enc_cat, self.hap_offsets,
-                                        self.hap_lens, job_seq[:nb],
-                                        win_start[:nb], L + W)
-                  if native.available() else None)
-            if gw is not None:
-                refs_arr[:nb] = gw
-            else:
-                pos = win_start[:nb, None] + np.arange(L + W)
-                in_range = (pos >= 0) & (pos < self.hap_lens[job_seq[:nb],
-                                                             None])
-                gp = self.hap_offsets[job_seq[:nb], None] + np.where(
-                    in_range, pos, 0)
-                vals = _ENC[self.hap_codes_cat[gp]]
-                refs_arr[:nb] = np.where(in_range, vals, 4)
+            gather_ref_windows(self.hap_enc_cat, self.hap_offsets,
+                               self.hap_lens, job_seq[:nb], win_start[:nb],
+                               L + W, refs_arr[:nb])
         scores, end_k, end_state, pointers = self._run_nw(
             reads_arr, lens_arr, refs_arr)
         self.stats.n_chain_extensions += nb

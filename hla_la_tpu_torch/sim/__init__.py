@@ -5,5 +5,6 @@ levels (``truth``) and whole typing worlds with planted alleles
 from .graph_sim import SimulatedPRG, simulate_prg_package
 from .read_sim import ReadSimulator, SimulatedPair
 from .truth import TrueReadLevels
-from .worlds import (LONG_READ_LENGTH, LongReadWorld, TypingWorld,
-                     long_read_world, typing_world)
+from .worlds import (LONG_READ_LENGTH, AsmWorld, KirWorld, LongReadWorld,
+                     TypingWorld, asm_world, kir_world, long_read_world,
+                     typing_world)

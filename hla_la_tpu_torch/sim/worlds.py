@@ -10,7 +10,13 @@ parameters.
 - ``typing_world``: the recipe of ``stress_imgt.py``, targeted deep paired
   100 bp reads over each gene window;
 - ``long_read_world``: unpaired 10 kb reads with ONT-like indels over a
-  whole 24,000-column panel whose genes are class-I sized.
+  whole 24,000-column panel whose genes are class-I sized;
+- ``kir_world``: a linear-ALT package of 32 aligned haplotypes of a
+  150 kb region with 14 genes, one of them absent from some haplotypes,
+  and a BAM of paired 100 bp reads from two planted haplotypes, for
+  ``--action KIR``;
+- ``asm_world``: ``typing_world``'s graph package and an assembly of two
+  contigs cut from the two planted haplotypes, for ``--action ASM``.
 
   world = long_read_world("build/worlds")
   cli.main(["--action", "HLA", *world.cli_args(), "--graph", world.graph])
@@ -25,9 +31,14 @@ import shutil
 
 import numpy as np
 
+from ..graph.package import GraphPackage
+from ..io.bam import (FLAG_PAIRED, FLAG_READ1, FLAG_READ2, FLAG_REVERSE,
+                      BamRecord, BamWriter)
+from ..io.fasta import write_fasta
 from ..io.fastq import write_fastq
+from ..models.kir_package import build_kir_package
 from .graph_sim import simulate_prg_package
-from .read_sim import ReadSimulator
+from .read_sim import ReadSimulator, revcomp
 
 # stress_imgt.py's world: two class-I-sized loci (J = 540 typed columns
 # each), 2,200 alleles per locus, 1,250x targeted coverage per haplotype
@@ -49,6 +60,31 @@ LONG_COVERAGE = 30.0
 LONG_INDEL_RATE = 0.01
 LONG_SEED = 271828
 
+# the KIR world: the KIR region of the leukocyte receptor complex at the
+# scale of an IPD-KIR-style panel: 32 haplotypes of a 150 kb region, 14
+# genes of 9 kb, each haplotype with its own SNPs; every fourth haplotype
+# lacks one gene (a gene-sized aligned deletion: presence/absence
+# variation).  Paired 100 bp reads with substitution errors at 15x from each
+# of two planted haplotypes, one of them with the deletion, in a BAM whose
+# contig carries
+# the region at KIR_REGION_START, plus reads outside the covered region.
+KIR_GENES = ("KIR3DL3", "KIR2DS2", "KIR2DL2", "KIR2DL5B", "KIR2DS3",
+             "KIR2DP1", "KIR2DL1", "KIR3DP1", "KIR2DL4", "KIR3DL1",
+             "KIR2DL5A", "KIR2DS5", "KIR2DS1", "KIR3DL2")
+KIR_HAPLOTYPES = 32
+KIR_LENGTH = 150000
+KIR_SNP_RATE = 0.03
+KIR_COVERAGE = 15.0
+KIR_DELETED_GENE = 6            # index into KIR_GENES
+KIR_TRUTH_HAPS = (9, 19)        # 19 % 4 == 3: carries the deletion
+KIR_CONTIG = ("chr19", 58617616)
+KIR_REGION_START = 54000000
+KIR_SEED = 314159
+
+# the assembly world: substitutions per contig, outside the exons
+ASM_SUBSTITUTIONS = 5
+ASM_SEED = 141421
+
 
 @dataclasses.dataclass(frozen=True)
 class TypingWorld:
@@ -69,6 +105,39 @@ class LongReadWorld:
 
     def cli_args(self) -> list[str]:
         return ["--FASTQU", self.fastq, "--longReads", "ont2d"]
+
+
+@dataclasses.dataclass(frozen=True)
+class KirWorld:
+    panel: str                          # linear-ALT package directory
+    bam: str
+    read_genes: str     # TSV: read name, the genes the read's span overlaps
+    truth: list[str]                    # the two planted haplotypes
+    n_pairs: int
+
+    def cli_args(self) -> list[str]:
+        return ["--ALTpanel", self.panel, "--BAM", self.bam]
+
+    def true_genes(self) -> dict[str, set[str]]:
+        """Read name -> genes; the mates of a pair share their name."""
+        out: dict[str, set[str]] = {}
+        with open(self.read_genes) as fh:
+            for line in fh:
+                name, genes = line.rstrip("\n").split("\t")
+                out.setdefault(name, set()).update(genes.split(","))
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class AsmWorld:
+    graph: str                          # graph package directory
+    fasta: str                          # the assembly's contigs
+    true_hla: str                       # truth table for --trueHLA
+    truth: dict[str, dict[str, str]]    # contig -> locus -> planted allele
+    strands: dict[str, str]             # contig -> "+" or "-"
+
+    def cli_args(self) -> list[str]:
+        return ["--ASMfasta", self.fasta, "--trueHLA", self.true_hla]
 
 
 def _cached(root: str, make_world, build):
@@ -175,5 +244,153 @@ def long_read_world(out_dir: str, n_alleles: int = IMGT_ALLELES,
                        "alleles": n_alleles, "coverage": coverage,
                        "read_length": read_length,
                        "indel_rate": LONG_INDEL_RATE, "reads": len(reads)}
+
+    return _cached(root, make_world, build)
+
+
+def kir_world(out_dir: str, length: int = KIR_LENGTH,
+              coverage: float = KIR_COVERAGE,
+              n_haplotypes: int = KIR_HAPLOTYPES) -> KirWorld:
+    """Build (or reuse from `out_dir`) a linear-ALT package of
+    `n_haplotypes` aligned haplotypes of `length` columns and a BAM of
+    paired 100 bp reads at `coverage` from each of the two planted
+    haplotypes, placed on KIR_CONTIG inside the package's covered region
+    (with TLEN set), and 200 reads far outside it."""
+    root = os.path.join(out_dir, f"kir_h{n_haplotypes}_l{length}_"
+                                 f"c{coverage:g}")
+    planted = [f"KIR_ALT{h:02d}" for h in KIR_TRUTH_HAPS]
+
+    def make_world(truth):
+        return KirWorld(panel=os.path.join(root, "panel"),
+                        bam=os.path.join(root, "in.bam"),
+                        read_genes=os.path.join(root, "read_genes.tsv"),
+                        truth=truth and truth["haplotypes"],
+                        n_pairs=truth and truth["pairs"])
+
+    def build(world):
+        rng = np.random.default_rng(KIR_SEED)
+        base = rng.integers(0, 4, length).astype(np.uint8)
+        slot = length // len(KIR_GENES)
+        spans = [(g, i * slot + slot // 10, i * slot + slot * 7 // 10)
+                 for i, g in enumerate(KIR_GENES)]
+        gone = spans[KIR_DELETED_GENE]
+        acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+        haps, ann = {}, {}
+        for h in range(n_haplotypes):
+            codes = base.copy()
+            snp = rng.random(length) < KIR_SNP_RATE
+            codes[snp] = (codes[snp] + rng.integers(1, 4, int(snp.sum()))) % 4
+            row = acgt[codes]
+            name = f"KIR_ALT{h:02d}"
+            ann[name] = list(spans)
+            if h % 4 == 3:
+                row[gone[1]:gone[2]] = ord("-")
+                ann[name].remove(gone)
+            haps[name] = row.tobytes().decode()
+        stop = KIR_REGION_START + length
+        build_kir_package(world.panel, haps, ann,
+                          {KIR_CONTIG[0]: (KIR_REGION_START, stop)})
+        # substitution errors alone: the simulator draws a read with an
+        # indel base by base, which at this many reads would take most of
+        # the build
+        rs = ReadSimulator(rng, read_length=100, fragment_mean=300,
+                           fragment_sd=30, insertion_rate=0.0,
+                           deletion_rate=0.0, with_error=True)
+        writer = BamWriter(world.bam, [KIR_CONTIG])
+        n_pairs = 0
+        with open(world.read_genes, "w") as fh:
+            for name in planted:
+                aligned = np.frombuffer(haps[name].encode(), dtype=np.uint8)
+                to_panel = np.flatnonzero(aligned != ord("-"))
+                seq = aligned[to_panel].tobytes().decode()
+                pairs = rs.simulate_pairs_from_string(
+                    seq, np.arange(len(seq)), coverage, name_prefix=name)
+                n_pairs += len(pairs)
+                for p in pairs:
+                    tlen = (abs(p.r2.start_pos - p.r1.start_pos)
+                            + len(p.r2.seq))
+                    for mate, r, tl in ((FLAG_READ1, p.r1, tlen),
+                                        (FLAG_READ2, p.r2, -tlen)):
+                        # a BAM holds a reverse-strand read as its
+                        # reverse complement, flagged
+                        sq, q, flag = r.seq, r.qual, FLAG_PAIRED | mate
+                        if r.reverse:
+                            sq, q = revcomp(sq), q[::-1]
+                            flag |= FLAG_REVERSE
+                        writer.write(BamRecord(
+                            name=r.name, flag=flag, ref_id=0,
+                            pos=KIR_REGION_START + max(r.start_pos, 0),
+                            mapq=60, cigar=[(len(sq), 0)], seq=sq, qual=q,
+                            tlen=tl))
+                        a = to_panel[max(r.start_pos, 0)]
+                        b = to_panel[min(r.start_pos + len(r.seq),
+                                         len(seq)) - 1] + 1
+                        genes = [g for g, lo, hi in ann[name]
+                                 if a < hi and b > lo]
+                        if genes:
+                            fh.write(f"{r.name}\t{','.join(genes)}\n")
+        for j in range(200):        # dropped at extraction
+            sq = acgt[rng.integers(0, 4, 100)].tobytes().decode()
+            writer.write(BamRecord(name=f"far{j}", flag=0, ref_id=0,
+                                   pos=stop + 1000000 + 50 * j, mapq=60,
+                                   cigar=[(100, 0)], seq=sq, qual="I" * 100))
+        writer.close()
+        truth = {"haplotypes": planted, "pairs": n_pairs}
+        return truth, {"seed": KIR_SEED, "haplotypes": n_haplotypes,
+                       "length": length, "coverage": coverage,
+                       "snp_rate": KIR_SNP_RATE}
+
+    return _cached(root, make_world, build)
+
+
+def asm_world(out_dir: str, n_alleles: int = IMGT_ALLELES,
+              coverage: float = IMGT_COVERAGE,
+              backbone: int = IMGT_BACKBONE) -> AsmWorld:
+    """Build (or reuse from `out_dir`) an assembly for the graph package of
+    typing_world(out_dir, n_alleles, coverage, backbone): one contig per
+    planted haplotype, cut from the package's linearized haplotypes, the
+    second one reverse-complemented, each with ASM_SUBSTITUTIONS
+    substitutions at least 60 bases away from every exon; and the truth
+    table that ``--trueHLA`` takes."""
+    typing = typing_world(out_dir, n_alleles, coverage, backbone)
+    root = os.path.join(os.path.dirname(typing.graph), "asm")
+
+    def make_world(truth):
+        return AsmWorld(graph=typing.graph,
+                        fasta=os.path.join(root, "contigs.fa"),
+                        true_hla=os.path.join(root, "trueHLA.txt"),
+                        truth=truth and truth["alleles"],
+                        strands=truth and truth["strands"])
+
+    def build(world):
+        rng = np.random.default_rng(ASM_SEED)
+        pkg = GraphPackage(world.graph)
+        exon_levels = np.asarray(sorted(pkg.segment_levels(
+            [fn for fn in pkg.segment_files() if "_exon_" in fn]).values()))
+        by_id = {s.fasta_id: s for s in pkg.sequences()}
+        contigs, alleles, strands = {}, {}, {}
+        for i, h in enumerate(TRUTH_HAPS):
+            info = by_id[f"PRG_hap_{h}"]
+            seq = list(pkg.prg_fasta()[info.fasta_id])
+            levels = pkg.translation(info.prg_id)
+            nearest = np.abs(levels[:, None] - exon_levels[None, :]).min(1)
+            free = np.flatnonzero(nearest > 60)
+            for p in rng.choice(free, ASM_SUBSTITUTIONS, replace=False):
+                seq[p] = "ACGT"[("ACGT".index(seq[p])
+                                 + int(rng.integers(1, 4))) % 4]
+            name = f"contig_hap{h}"
+            strands[name] = "-" if i else "+"
+            contigs[name] = revcomp("".join(seq)) if i else "".join(seq)
+            alleles[name] = {locus: planted[i]
+                             for locus, planted in typing.truth.items()}
+        write_fasta(world.fasta, contigs)
+        loci = sorted(typing.truth)
+        with open(world.true_hla, "w") as fh:
+            fh.write("IndividualID\t" + "\t".join(
+                lc for lc in loci for _ in range(2)) + "\n")
+            fh.write("S1\t" + "\t".join(
+                a for lc in loci for a in typing.truth[lc]) + "\n")
+        return ({"alleles": alleles, "strands": strands},
+                {"seed": ASM_SEED, "substitutions": ASM_SUBSTITUTIONS})
 
     return _cached(root, make_world, build)

@@ -136,6 +136,31 @@ _BLOCKED_SLICE = textwrap.dedent("""
         w.close()
         assert main(common + ["--BAM", td + "/in.bam", "--outputDirectory",
                               td + "/cli_bam"]) == 0
+        # the linear-ALT and the assembly typers through the CLI
+        panel = {f"ALT{i}": "".join(
+            "ACGT"[c] for c in rng.integers(0, 4, 1500)) for i in range(3)}
+        with open(td + "/panel.fa", "w") as fh:
+            for name, seq in panel.items():
+                fh.write(f">{name}\\n{seq}\\n")
+        kir_pairs = []
+        for name in ("ALT0", "ALT2"):
+            kir_pairs += rs.simulate_pairs_from_string(
+                panel[name], np.arange(1500), 5.0, name_prefix=name)
+        write_fastq(td + "/K_1.fq", [p.r1.to_fastq() for p in kir_pairs])
+        write_fastq(td + "/K_2.fq", [p.r2.to_fastq() for p in kir_pairs])
+        assert main(["--action", "KIR", "--ALTpanel", td + "/panel.fa",
+                     "--FASTQ1", td + "/K_1.fq", "--FASTQ2", td + "/K_2.fq",
+                     "--outputDirectory", td + "/kir", "--device",
+                     "cpu"]) == 0
+        with open(td + "/kir/KIR_haplotypes.txt") as fh:
+            kir_call = fh.read().splitlines()[1].split("\\t")[:2]
+        with open(td + "/contigs.fa", "w") as fh:
+            fh.write(f">c1\\n{sim.linearized(1)[0]}\\n")
+        assert main(["--action", "ASM", "--graph", pkg.dir, "--ASMfasta",
+                     td + "/contigs.fa", "--outputDirectory", td + "/asm",
+                     "--device", "cpu"]) == 0
+        with open(td + "/asm/summary.txt") as fh:
+            asm_rows = fh.read().splitlines()[1:]
         tables = []
         for d in ("cli_fq", "cli_bam"):
             with open(os.path.join(td, d, "hla", "R1_bestguess.txt")) as fh:
@@ -145,6 +170,9 @@ _BLOCKED_SLICE = textwrap.dedent("""
     calls = [[line.split("\\t")[:3] for line in t.splitlines()]
              for t in tables]
     assert calls[0] == calls[1] and len(calls[0]) > 2
+    assert kir_call == ["ALT0", "ALT2"], kir_call
+    assert len(asm_rows) == 2 and all(
+        r.split("\\t")[4] == "0" for r in asm_rows), asm_rows
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "hla_la_tpu")]
     assert sorted(loaded) == ["hla_la_tpu", "jax"], loaded
@@ -154,13 +182,14 @@ _BLOCKED_SLICE = textwrap.dedent("""
 
 
 def test_cpu_slice_runs_with_jax_blocked():
-    """Short reads, long reads, and the CLI on FASTQ and on a BAM, with
-    jax and the JAX package both blocked."""
+    """Short reads, long reads, the CLI on FASTQ and on a BAM, and
+    --action KIR and --action ASM, with jax and the JAX package both
+    blocked."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_SLICE], cwd=REPO,
                           env=env, capture_output=True, text=True,
-                          timeout=300)
+                          timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "SLICE_OK" in proc.stdout
 
@@ -175,7 +204,7 @@ io/__init__ io/fastq io/fasta io/bam io/cram io/rans io/rans_nx16 io/arith
 io/tok3 io/fqzcomp native graph/__init__ graph/prg graph/package
 graph/compile mapping/__init__ mapping/kmer_index mapping/seeder
 mapping/global_align mapping/decoy ops/graph_dp models/alignment
-models/graph_fallback sim/graph_sim sim/read_sim sim/truth
+models/graph_fallback models/kir_package sim/graph_sim sim/read_sim sim/truth
 """.split()
 COPY_DIFFS = {'graph/compile.py': ['-        # uncompressed: single-stream zlib cost ~12s '
                       'of prepareGraph at 3M',
@@ -223,6 +252,10 @@ COPY_DIFFS = {'graph/compile.py': ['-        # uncompressed: single-stream zlib 
                  'when built).',
                  '+C++ fast path for the payload decode via the native module '
                  'when built).'],
+ 'models/kir_package.py': ['-The reference ships no builder (the KIR panel was '
+                           'prepared offline from',
+                           '+The reference ships no packager (the KIR panel '
+                           'was prepared offline from'],
  'mapping/seeder.py': ['-            # candidates costs ~5x, so keep it one '
                        'fancy-index pass)',
                        '+            # candidates is slow, so keep it one '
@@ -297,8 +330,19 @@ REWRITTEN_UNITS = {
         "HLATyper._write_summary_statistics", "KmerCountIndex.build"},
     "models/pipeline": {"_align_all", "_write_reads_per_level",
                         "run_hla_typing"},
+    # the device seam and the batched pass over all reads' NW jobs; the
+    # backtrace's consumer _score_ops, the gene assignment and the result
+    # record are the reference's text
+    "models/linear_alts": {
+        "LinearALTsTyper.__init__", "LinearALTsTyper.haplotype_likelihoods",
+        "LinearALTsTyper.type_diploid", "LinearALTsTyper.estimate_insert",
+        "LinearALTsTyper.type_diploid_paired"},
+    # the device seam: the two places that score through the NW forward
+    "models/asm": {"AssemblyTyper.__init__", "AssemblyTyper._exon_distances",
+                   "AssemblyTyper._verify_located_candidate"},
     "cli": {"_regions_from_spec", "_require_graph", "_split_long_reads",
-            "action_hla", "main"},
+            "action_hla", "main", "action_asm", "action_kir",
+            "action_kir_simulation", "action_build_kir_panel"},
 }
 
 
@@ -483,12 +527,17 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
 DEVICE_PATH_FILES = ["_build.py", "device.py", "cli.py", "profile_e2e.py",
                      "ops/banded_nw.py", "ops/pair_ll.py", "ops/cuda_nw.py",
                      "ops/cuda_nw_long.py", "ops/cuda_pair.py",
-                     "models/pipeline.py"]
+                     "models/pipeline.py", "models/linear_alts.py"]
 DEVICE_CALLS = {"banded_nw_forward_torch", "banded_nw_cuda",
                 "banded_nw_long_cuda", "pair_ll_diff_cuda",
                 "pair_ll_reduction", "cluster_read_ll", "_run_nw", "_forward",
                 "_pair_ll_diff", "library", "build", "resolve", "to_device",
-                "run_hla_typing"}
+                "run_hla_typing", "run_jobs", "scores", "NWRunner",
+                "_read_ll_rows", "_score_jobs", "haplotype_likelihoods",
+                "type_diploid", "type_diploid_paired", "_exon_distances",
+                "_verify_located_candidate", "type_contigs"}
+# KmerIndex.build makes the host's k-mer index; it is no kernel build
+HOST_INDEX_CLASSES = {"KmerIndex"}
 
 
 def test_no_fallback_in_the_device_path():
@@ -506,5 +555,38 @@ def test_no_fallback_in_the_device_path():
                 continue
             called = {getattr(c.func, "attr", getattr(c.func, "id", None))
                       for stmt in node.body for c in ast.walk(stmt)
-                      if isinstance(c, ast.Call)}
+                      if isinstance(c, ast.Call)
+                      and getattr(getattr(c.func, "value", None), "id",
+                                  None) not in HOST_INDEX_CLASSES}
             assert not called & DEVICE_CALLS, (path, node.lineno)
+
+
+def test_typers_raise_without_a_card_and_never_take_the_host_forward(
+        tmp_path, monkeypatch):
+    """The linear-ALT and the assembly typer on a CUDA device with no card
+    raise when they are made; neither module imports the host NW forward
+    (``banded_nw_forward``, native or numpy): every DP cell goes through
+    NWRunner to the device."""
+    import numpy as np
+
+    from hla_la_tpu_torch.graph.package import GraphPackage
+    from hla_la_tpu_torch.models.asm import AssemblyTyper
+    from hla_la_tpu_torch.models.linear_alts import LinearALTsTyper
+    from hla_la_tpu_torch.sim import simulate_prg_package
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        LinearALTsTyper({"a": "ACGT" * 30, "b": "TTGCA" * 24}, device="cuda")
+    sim = simulate_prg_package(np.random.default_rng(3),
+                               backbone_length=1200, n_haplotypes=3)
+    pkg_dir = sim.write_package(str(tmp_path / "pkg")).dir
+    with pytest.raises(RuntimeError, match="is_available"):
+        AssemblyTyper(GraphPackage(pkg_dir), device="cuda")
+    for rel in ("models/linear_alts.py", "models/asm.py"):
+        tree = ast.parse((PORT / rel).read_text())
+        names = {a.name for node in ast.walk(tree)
+                 if isinstance(node, ast.ImportFrom) for a in node.names}
+        assert "NWRunner" in names, rel
+        assert not names & {"banded_nw_forward", "banded_nw_forward_torch",
+                            "banded_nw_plain", "nw_forward"}, rel
+        assert "nw_forward(" not in (PORT / rel).read_text(), rel

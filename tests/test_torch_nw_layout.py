@@ -277,9 +277,9 @@ def _world(seed, B, L, W, cpt):
     return reads, lens, refs
 
 
-def _plain(reads, lens, refs):
+def _plain(reads, lens, refs, sc=SC):
     return [t.numpy() for t in
-            banded_nw_forward_torch(reads, lens, refs, SC, "cpu")]
+            banded_nw_forward_torch(reads, lens, refs, sc, "cpu")]
 
 
 def _assert_live_equal(got, want, min_live):
@@ -367,6 +367,81 @@ def test_walls_cut_the_carry_where_they_stand():
     lens = np.full(B, L, np.int64)
     got = lane_model(reads, lens, refs, SC, cpt, lanes, 8)
     _assert_live_equal(got, _plain(reads, lens, refs), B)
+
+
+# the assembly typer's unit scoring: match 0 and every penalty -1, so that
+# almost every maximum of the row step is a tie
+EDIT = {"match": 0.0, "mismatch": -1.0, "gap_open": -1.0, "gap_extend": -1.0}
+
+
+def _exon_world(seed, B, L, W):
+    """The assembly typer's jobs: allele sequences of ragged lengths, padded
+    with code 4, all against ONE contig window; alleles differ from the
+    window by a few substitutions and a short indel; the window ends a few
+    bases short of L + W, as at a contig's end."""
+    rng = np.random.default_rng(seed)
+    window = rng.integers(0, 4, L + W).astype(np.uint8)
+    window[L + W - 5:] = 4
+    lens = rng.integers(L - 6, L + 1, B).astype(np.int64)
+    lens[0] = L
+    reads = np.full((B, L), 4, np.uint8)
+    for b in range(B):
+        a = list(window[W // 2:W // 2 + L + 4])
+        for _ in range(int(rng.integers(0, 4))):
+            a[int(rng.integers(0, L))] = int(rng.integers(0, 4))
+        if b % 3 == 1:
+            del a[int(rng.integers(1, L - 1))]
+        if b % 3 == 2:
+            a.insert(int(rng.integers(1, L - 1)), int(rng.integers(0, 4)))
+        reads[b, :lens[b]] = a[:lens[b]]
+    return reads, lens, np.repeat(window[None], B, axis=0)
+
+
+@pytest.mark.parametrize("chunk", [8, 1024])
+@pytest.mark.parametrize("world", ["exons", "reads"])
+def test_lane_model_matches_plain_under_unit_scoring(world, chunk):
+    """K2's plan for the assembly typer's band of 48 (four cells on each of
+    16 lanes) under unit scoring, where D, IY and IX tie all the time: the
+    pointers follow the plain version's >= and >, the harvest its first
+    argmax."""
+    plan = nw_launch_plan(2200, 270, 48)
+    assert (plan.cpt, plan.lanes, plan.job_warps) == (4, 16, 1)
+    B, L, W = 24, 37, 48
+    reads, lens, refs = (_exon_world(7, B, L, W) if world == "exons"
+                         else _world(11, B, L, W, plan.cpt))
+    got = lane_model(reads, lens, refs, EDIT, plan.cpt, plan.lanes, chunk)
+    want = _plain(reads, lens, refs, EDIT)
+    _assert_live_equal(got, want, B // 3)
+    if world == "exons":
+        assert (want[0] > -1e29).all() and (want[0] <= 0).all()
+        assert len(set(want[0].tolist())) > 2
+
+
+@pytest.mark.parametrize("end", ["left", "right", "both"])
+@pytest.mark.parametrize("sc", [SC, EDIT], ids=["aligner", "unit"])
+def test_lane_model_matches_plain_on_windows_off_a_haplotypes_ends(end, sc):
+    """The linear-ALT typer's windows at a haplotype's ends at W = 32:
+    pad codes before the haplotype's first base, after its last, or both
+    (a haplotype shorter than the window), so that most of the band is
+    masked in every row."""
+    cpt, lanes, W, B, L = 4, 8, 32, 24, 37
+    rng = np.random.default_rng(W + len(end))
+    hap = rng.integers(0, 4, (B, L + W)).astype(np.uint8)
+    reads = hap[:, W // 2:W // 2 + L].copy()
+    reads[rng.random((B, L)) < 0.05] = 1
+    refs = hap.copy()
+    off = rng.integers(1, W // 2 + 1, B)
+    col = np.arange(L + W)[None]
+    if end in ("left", "both"):      # the haplotype starts inside the band
+        refs[col < off[:, None]] = 4
+    if end in ("right", "both"):     # and ends before the read does
+        refs[col >= (L + W // 2 - off + 4)[:, None]] = 4
+    lens = np.full(B, L, np.int64)
+    lens[::4] = L - 5
+    reads[np.arange(L)[None] >= lens[:, None]] = 4
+    got = lane_model(reads, lens, refs, sc, cpt, lanes, 8)
+    want = _plain(reads, lens, refs, sc)
+    _assert_live_equal(got, want, B)
 
 
 # ------------------------------------------------------------ launch plan

@@ -367,5 +367,5 @@ def test_profile_summary_counts_device_events_only():
 
 
 def test_cli_refuses_unported_action(capsys):
-    assert port_main(["--action", "KIR"]) != 0
+    assert port_main(["--action", "findKIRinBAM"]) == 2
     assert "not yet ported" in capsys.readouterr().err
