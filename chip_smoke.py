@@ -3,7 +3,9 @@
     python chip_smoke.py
 
 Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero
-and no result line is printed:
+and no result line is printed.  The three full-size worlds are built in
+processes of their own from the start, and (g) runs before (e), while the
+IMGT-scale world is still being built:
 
   (a) toolchain: torch, CUDA, nvcc, and the card's name and power limit;
   (b) build: compile the kernels from hla_la_tpu_torch/csrc with nvcc;
@@ -31,8 +33,10 @@ and no result line is printed:
       Q1/Q2 within 1e-3;
   (g) K2, the banded NW forward for bands wider than 32, against the same
       plain version on the card, bit-identical on live rows and across
-      reruns, at B x L x W = 128 x 16,384 x 256 (the long-read working
-      point), 1,024 x 1,400 x 160 (W not a power of two), 256 x 500 x 100
+      reruns, at B x L x W = 128 x 4,096 x 256 (a quarter of the length of
+      the long-read working point 128 x 16,384 x 256, which bench_nw.py
+      times: the plain version's row loop is the longest wait of this
+      script there), 1,024 x 1,400 x 160 (W not a power of two), 256 x 500 x 100
       (four cells per lane; also held against the CPU), 64 x 1,000 x 600
       (a job across three warps), 256 x 500 x 33 (a band that is not a
       multiple of the cells per lane, two jobs per warp), 838 x 10,000 x 256
@@ -68,19 +72,49 @@ and no result line is printed:
       genePositions.tab puts every exon on its contig's strand, K2
       launched;
   (m) small KIR and ASM worlds on cuda against the CPU: calls, reads2Genes,
-      summary.txt and genePositions.tab equal, posterior within 1e-3.
+      summary.txt and genePositions.tab equal, posterior within 1e-3;
+  (n) K3's launch rule and tile ranges: with one tile (C = 32 and C = 6 at
+      R = 22,500) the read range is cut into more than one block and the
+      kernel beats its plain version; at C = 2,200 x R = 16,460 and at
+      C = 32 the tile ranges that 2 and 4 model ranks take sum to the
+      one-call matrix bit for bit;
+  (o) the CLI's paralog defence and an ambiguous call, cuda against the
+      CPU: the decoy world with ``--decoyFasta`` (the same pairs dropped,
+      nearly all of the paralog's, the same calls), and the ambiguous world
+      (a Q1 strictly inside (0.05, 0.95); Q1/Q2 within 1e-3);
+  (p) worker processes and align shards on cuda, on the world of (e):
+      ``--maxThreads 4`` (every worker holds a context on the card): every
+      output file byte-equal to the one-process run of (e), every NW job on
+      the card summed over the workers, K1 launched in the workers; then
+      the same run through ``run_hla_typing`` with the typing workers' gate
+      lowered, so that K3 is launched in the workers too; then ``--nHosts 2
+      --hostIdx 0/1 --shardDir`` and ``--mergeShards``, byte-equal again.
+      One-process and worker walls are printed side by side, with the
+      time the workers took to be ready;
+  (q) the sharded backend on the one card: ``ShardedNW`` bit-equal to
+      ``NWRunner.run`` and ``pair_ll_reduction_sharded`` within rtol 1e-6 /
+      atol 1e-2 of the one-device reduction, on an NCCL group of one rank
+      and on two gloo ranks that share the card (their collectives on host
+      tensors); then the CLI's ``--sharded 1`` (NCCL) on the small world of
+      (f) and ``--sharded 4`` (gloo) on the world of (e) against the
+      one-process runs: NW batches split over all four ranks, the pair
+      reduction over the 2 x 2 mesh that follows from their count (each
+      rank half of K3's tile list on half the reads); the same calls, Q1/Q2
+      within 1e-3, every NW job on the card, K1 and K3 launched on every
+      rank.  One card cannot show traffic BETWEEN cards: that is not
+      measured here.
 
 The last two lines are the card's name and power limit, and
 {"ok": true, "device": {...}}; the line before them is the kernels' JSON
-record, one entry per kernel and main path (K1 and K2 run on two, K3 on
-three), with the
+record, one entry per kernel and main path (K1 runs on four, K2 on two, K3
+on five), with the
 launches of that path's run and the kernel's time beside its bound: the
 larger of its bytes (inputs read once, outputs written once) over the card's
 memory rate and its operations over the card's peak rate for their type.
 Nothing here imports jax or the JAX package.
 The worlds are cached under build/chip_smoke_world/.  One kernel alone:
 
-    python -c "import chip_smoke as c; c.check_nw_long(128, 16384, 256, {})"
+    python -c "import chip_smoke as c; c.check_nw_long(128, 4096, 256, {})"
 """
 
 from __future__ import annotations
@@ -94,6 +128,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 for _blocked in ("jax", "hla_la_tpu"):   # any import of either fails loudly
@@ -123,7 +158,7 @@ Q1_MIN, C_MIN = 0.9, 2000       # stress_imgt.py's checks at IMGT scale
 SMALL_WORLD = {"n_alleles": 60, "coverage": 40.0}
 # (B, L, W) of phase (g) besides the shape of phase (h)'s NW calls; the
 # third is also held against the CPU, the last passes 2^31 pointer bytes
-NW_LONG_SHAPES = ((128, 16384, 256), (1024, 1400, 160), (256, 500, 100),
+NW_LONG_SHAPES = ((128, 4096, 256), (1024, 1400, 160), (256, 500, 100),
                   (64, 1000, 600), (256, 500, 33), (8192, 1100, 256))
 NW_LONG_CPU = NW_LONG_SHAPES[2]
 LONG_W = 256                    # the aligner's band in long-read mode
@@ -140,6 +175,41 @@ SMALL_KIR_WORLD = {"length": 12000, "coverage": 10.0}
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+_WORLD_BUILDS: dict = {}        # simulator's name -> the process making it
+
+
+def start_world_builds() -> None:
+    """Build the three full-size worlds into the cache under WORLD_DIR, each
+    in a process of its own, while the kernels are built and held against
+    their plain versions: the simulators are host Python and take minutes."""
+    code = ("import sys; from hla_la_tpu_torch import sim; "
+            "getattr(sim, sys.argv[1])(sys.argv[2])")
+    for name in ("typing_world", "long_read_world", "kir_world"):
+        _WORLD_BUILDS[name] = subprocess.Popen(
+            [sys.executable, "-c", code, name, WORLD_DIR], cwd=ROOT)
+
+
+def built_world(name: str):
+    """The full-size world of simulator `name` from the cache, once its
+    build process (if one was started) has ended."""
+    from hla_la_tpu_torch import sim
+    t0 = time.perf_counter()
+    proc = _WORLD_BUILDS.pop(name, None)
+    if proc is not None and proc.wait() != 0:
+        fail(f"building {name} failed (exit code {proc.returncode})")
+    world = getattr(sim, name)(WORLD_DIR)
+    print(f"{name} ready after a further {time.perf_counter() - t0:.1f} s")
+    return world
+
+
+def stop_world_builds() -> None:
+    for proc in _WORLD_BUILDS.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    _WORLD_BUILDS.clear()
 
 
 def fail(msg: str):
@@ -189,14 +259,31 @@ def nw_bound(B: int, L: int, W: int) -> dict:
             "library_ms": None}     # no single PyTorch call computes it
 
 
-def pair_bound(C: int, R: int, max_mhz: float) -> dict:
+def live_pairs(C: int, tile_range=None) -> int:
+    """Cluster pairs c1 <= c2 of the whole matrix, or of the tiles
+    (first, count) of K3's tile list alone."""
+    if tile_range is None:
+        return C * (C + 1) // 2
+    from hla_la_tpu_torch.ops.pair_ll import PAIR_TILE as T, _tile_rows
+    n = 0
+    for ti, tj_lo, tj_hi in _tile_rows(C, *tile_range):
+        rows = min((ti + 1) * T, C) - ti * T
+        cols = min((tj_hi + 1) * T, C) - tj_lo * T
+        # the row's first tile may lie on the diagonal: its lower half is
+        # the mirror of its upper half
+        n += rows * cols - (rows * (rows - 1) // 2 if tj_lo == ti else 0)
+    return n
+
+
+def pair_bound(C: int, R: int, max_mhz: float, tile_range=None) -> dict:
     """The least time the card could take for the pair reduction's
-    C (C + 1) / 2 * R cells: L read and the output written once, against the
-    float32 operations and against the two special-function results per
-    cell at the card's top clock.  The latter is the larger by far."""
+    C (C + 1) / 2 * R cells (those of `tile_range` alone, where given): L
+    read and the output written once, against the float32 operations and
+    against the two special-function results per cell at the card's top
+    clock.  The latter is the larger by far."""
     import torch
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    cells = C * (C + 1) // 2 * R
+    cells = live_pairs(C, tile_range) * R
     by_bytes = 4 * (C * R + C * C) / HBM_BYTES_PER_S * 1e3
     by_flops = PAIR_FLOPS_PER_CELL * cells / FP32_FLOPS * 1e3
     by_sfu = (PAIR_SFU_PER_CELL * cells
@@ -442,7 +529,10 @@ def pair_f64_errors(L, versions: dict) -> dict:
             for name, (acc, rpad) in versions.items()}
 
 
-def check_pair(C: int, R: int, record: dict) -> None:
+def check_pair(C: int, R: int, record: dict, tile_range=None) -> None:
+    """K3 against its plain version at C x R, timed beside its bound; with
+    `tile_range` = (first, count), the call a model rank makes: those tiles
+    of the tile list alone, held on the cells they cover."""
     import numpy as np
     import torch
     from hla_la_tpu_torch import _build
@@ -460,44 +550,60 @@ def check_pair(C: int, R: int, record: dict) -> None:
         acc, rpad = acc_rpad
         return base + acc.cpu().numpy().astype(np.float64) + LOG_HALF * rpad
 
-    acc1, rpad = pair_ll_diff_cuda(Ld)
-    acc2, _ = pair_ll_diff_cuda(Ld)
+    acc1, rpad = pair_ll_diff_cuda(Ld, tile_range)
+    acc2, _ = pair_ll_diff_cuda(Ld, tile_range)
     sync()
     if not torch.equal(acc1, acc2):
         fail("K3 reruns are not bit-identical")
     got = full((acc1, rpad))
-    plain = pair_ll_diff_plain(Ld)
+    plain = pair_ll_diff_plain(Ld, tile_range=tile_range)
     want = full(plain)
     sync()
+    if tile_range is not None:
+        # what the range does not cover is zero in both and holds nothing:
+        # the two versions pad the reads to different counts
+        covered = (acc1 != 0).cpu().numpy()
+        if not np.array_equal(covered, (plain[0] != 0).cpu().numpy()):
+            fail(f"K3 C={C} R={R}: tile range {tile_range} covers other "
+                 f"cells than the plain version's")
+        got, want = np.where(covered, got, 0.0), np.where(covered, want, 0.0)
     err = np.abs(got - want)
     if not np.allclose(got, want, rtol=PAIR_RTOL, atol=PAIR_ATOL):
         fail(f"K3 vs plain at C={C} R={R}: max abs err "
              f"{err.max():.4g} beyond rtol={PAIR_RTOL} atol={PAIR_ATOL}")
     if not np.array_equal(got, got.T):
         fail("K3 output is not symmetric")
-    err64 = pair_f64_errors(L, {"kernel": (acc1, rpad), "plain": plain})
-    ms = cuda_ms(lambda: pair_ll_diff_cuda(Ld), reps=5)
+    err64 = None    # sampled over the whole matrix: taken at this C in (d)
+    if tile_range is None:
+        err64 = pair_f64_errors(L, {"kernel": (acc1, rpad), "plain": plain})
+    ms = cuda_ms(lambda: pair_ll_diff_cuda(Ld, tile_range), reps=5)
     mhz, max_mhz = sm_clocks_mhz()
-    plain_ms = cuda_ms(lambda: pair_ll_diff_plain(Ld), reps=1)
-    bound = pair_bound(C, R, max_mhz)
-    gcells = C * (C + 1) // 2 * R / (ms * 1e-3) / 1e9
-    # scratch floats = parts * tiles * 64 * 64 when the read range is cut
-    n_tiles = -(-C // 64)
-    parts = max(1, _build.library().lib.hla_pair_ll_scratch_floats(C, R)
-                // (n_tiles * (n_tiles + 1) // 2 * 64 * 64))
+    plain_ms = cuda_ms(
+        lambda: pair_ll_diff_plain(Ld, tile_range=tile_range), reps=1)
+    bound = pair_bound(C, R, max_mhz, tile_range)
+    gcells = live_pairs(C, tile_range) * R / (ms * 1e-3) / 1e9
+    parts = _build.library().lib.hla_pair_ll_parts(C, R)
+    if tile_range is not None:
+        print(f"K3 C={C} R={R}: tiles {tile_range[0]} to "
+              f"{sum(tile_range) - 1} of the tile list alone, "
+              f"{live_pairs(C, tile_range)} of {live_pairs(C)} cluster pairs")
     print(f"K3 C={C} R={R} (kernel pads to {rpad} and cuts the reads into "
           f"{parts} part(s), plain pads to {plain[1]}): within rtol={PAIR_RTOL} atol={PAIR_ATOL} of plain "
           f"(max abs err {err.max():.4g}), exactly symmetric, bit-identical "
-          f"reruns; max |acc - float64| on {PAIR_F64_SAMPLES} sampled pairs: "
-          f"kernel {err64['kernel']:.4g}, plain {err64['plain']:.4g}; kernel "
-          f"{ms:.3f} ms ({gcells:.1f} Gcells/s over the C(C+1)/2 R live "
-          f"cells), plain {plain_ms:.3f} ms; special-function bound "
+          f"reruns; "
+          + (f"max |acc - float64| on {PAIR_F64_SAMPLES} sampled pairs: "
+             f"kernel {err64['kernel']:.4g}, plain {err64['plain']:.4g}; "
+             if err64 else "")
+          + f"kernel {ms:.3f} ms ({gcells:.1f} Gcells/s over the live "
+          f"cells c1 <= c2), plain {plain_ms:.3f} ms; special-function bound "
           f"{bound['bound_ms']:.3f} ms at {max_mhz:.0f} MHz "
           f"({100 * bound['bound_ms'] / ms:.1f}% of it reached; SM clock "
           f"after the timed launches {mhz:.0f} MHz)")
     record.update(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
-                  max_abs_err_f64=err64["kernel"],
-                  plain_max_abs_err_f64=err64["plain"], **bound)
+                  read_parts=parts, **bound)
+    if err64:
+        record.update(max_abs_err_f64=err64["kernel"],
+                      plain_max_abs_err_f64=err64["plain"])
 
 
 class _Tee(io.TextIOBase):
@@ -514,14 +620,37 @@ class _Tee(io.TextIOBase):
             st.flush()
 
 
+@contextlib.contextmanager
+def captured_stderr(sink: io.StringIO):
+    """What this process AND the processes it starts write to file
+    descriptor 2 goes into `sink` (and on to the real stderr afterwards):
+    worker processes and ranks log there directly."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with tempfile.TemporaryFile() as fh:
+        os.dup2(fh.fileno(), 2)
+        try:
+            yield
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+            fh.seek(0)
+            text = fh.read().decode(errors="replace")
+            sink.write(text)
+            sys.stderr.write(text)
+
+
 def read_table(path: str) -> list[list[str]]:
     with open(path) as fh:
         return [line.rstrip("\n").split("\t") for line in fh]
 
 
-def run_port(device: str, world, out_dir: str) -> dict:
-    """Type `world` with the port's CLI on `device`; the kernels' launch
-    counters are zeroed just before the run and read just after it."""
+def run_port(device: str, world, out_dir: str, extra=()) -> dict:
+    """Type `world` with the port's CLI on `device` (plus the `extra`
+    arguments); the kernels' launch counters are zeroed just before the run
+    and read just after it.  Launches made in worker processes are read
+    from the run's summed statistics ("worker_launches")."""
     from hla_la_tpu_torch.cli import main as port_main
     from hla_la_tpu_torch.ops.cuda_nw import banded_nw_cuda
     from hla_la_tpu_torch.ops.cuda_nw_long import banded_nw_long_cuda
@@ -530,14 +659,14 @@ def run_port(device: str, world, out_dir: str) -> dict:
     shutil.rmtree(out_dir, ignore_errors=True)
     argv = ["--action", "HLA", *world.cli_args(), "--graph", world.graph,
             "--sampleID", "S1", "--outputDirectory", out_dir, "--device",
-            device]
+            device, *extra]
     log = io.StringIO()
     kernels = {"K1": banded_nw_cuda, "K2": banded_nw_long_cuda,
                "K3": pair_ll_diff_cuda}
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(_Tee(sys.stderr, log)):
+    with captured_stderr(log):
         rc = port_main(argv)
     if device == "cuda":
         sync()
@@ -558,7 +687,18 @@ def run_port(device: str, world, out_dir: str) -> dict:
     if not (m_dev and int(m_dev.group(1)) == nw_jobs):
         fail(f"not every one of the {nw_jobs} NW jobs ran on {device}")
     hla = os.path.join(out_dir, "hla")
+    dropped = re.search(r"decoy_dropped_pairs: (\d+)", text)
     return {"dir": out_dir, "launches": launches, "wall_s": wall,
+            "worker_launches": {
+                k: int(n) for k, n in
+                re.findall(r"worker_launches_(K\d): (\d+)", text)},
+            "decoy_dropped_pairs": int(dropped.group(1)) if dropped else 0,
+            "workers_ready": [
+                tuple(float(x) for x in m) for m in re.findall(
+                    r"alignment worker \d+ ready on \S+ ([0-9.]+) s after "
+                    r"the pool was made: process start and imports "
+                    r"([0-9.]+) s, package and aligner ([0-9.]+) s, device "
+                    r"context ([0-9.]+) s", text)],
             "bestguess": read_table(os.path.join(hla, "R1_bestguess.txt")),
             "align_s": float(m_al.group(5)),
             "reads_per_s": float(m_al.group(6)),
@@ -744,17 +884,21 @@ def report_run(tag: str, res: dict) -> None:
         print(f"  locus {lc}: C={c} clusters x R={r} reads")
 
 
-def compare_devices(world, tag: str, exact: bool = False) -> None:
+def compare_devices(world, tag: str, exact: bool = False,
+                    truth: bool = True) -> dict:
     """The port's CLI on cuda against the port's CLI on the CPU; the cuda
-    run's calls are held to the planted alleles as check_truth does."""
-    runs = {dev: run_port(dev, world, os.path.join(WORLD_DIR, "runs",
-                                                   f"{tag}_{dev}"))
+    run's calls are held to the planted alleles as check_truth does
+    (unless `truth` is off).  Returns the two runs by device."""
+    runs = {dev: run_port(dev, world, os.path.join(
+                WORLD_DIR, "runs", f"{tag.replace(' ', '_')}_{dev}"))
             for dev in ("cuda", "cpu")}
     q_err = check_same_run(runs["cuda"], runs["cpu"])
-    check_truth(runs["cuda"], world, 0, exact)
+    if truth:
+        check_truth(runs["cuda"], world, 0, exact)
     print(f"{tag}: cuda and CPU runs agree (coverage track and calls "
           f"identical, max |dQ| {q_err:.3g}); cuda {runs['cuda']['wall_s']:.3f}"
           f" s, CPU {runs['cpu']['wall_s']:.3f} s")
+    return runs
 
 
 def check_same_run(got: dict, want: dict) -> float:
@@ -792,19 +936,28 @@ def kernel_records() -> dict:
     pair = {"name": "pair_ll_diff", "path": short, "route": "cuda",
             "source": "hla_la_tpu_torch/csrc/pair_ll.cu",
             "replaces": "hla_la_tpu/ops/pallas_pair.py:85"}     # and :138
+    workers = "short reads in 4 worker processes, phase (p)"
+    ranks = "short reads on 4 ranks (--sharded 4), phase (q)"
     return {"nw": nw, "pair": pair, "nw_long": nw_long,
             "pair_long": {**pair, "path": long_},
             "nw_kir": {**nw, "path": kir}, "pair_kir": {**pair, "path": kir},
-            "nw_asm": {**nw_long, "path": asm}}
+            "nw_asm": {**nw_long, "path": asm},
+            "nw_workers": {**nw, "path": workers},
+            "pair_workers": {**pair, "path": workers},
+            "nw_sharded": {**nw, "path": ranks},
+            "pair_sharded": {**pair, "path": ranks}}
 
 
-def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> None:
+def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> dict:
     """Phases (c)-(i): the kernels at --action HLA's shapes and its two
-    main paths."""
+    main paths.  Returns the one-process cuda runs that later phases hold
+    their many-process runs against: {"imgt": (world, run), "small": ...}."""
     from hla_la_tpu_torch.models.aligner import jobs_per_call
     from hla_la_tpu_torch.sim import (LONG_READ_LENGTH, long_read_world,
                                       typing_world)
 
+    # (g) runs before (e): its plain versions' row loops take a minute of
+    # the time the IMGT-scale world needs to be built
     phase("(c) K1 banded NW vs plain")
     for shape in NW_SHAPES:
         check_nw(*shape, nw if shape == NW_SHAPES[0] else None)
@@ -812,25 +965,6 @@ def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> None:
 
     phase("(d) K3 pair reduction vs plain")
     check_pair(PAIR_C, PAIR_R, pair)
-    sync()
-
-    phase("(e) end to end: the port's CLI on cuda, IMGT-scale world")
-    t0 = time.perf_counter()
-    world = typing_world(WORLD_DIR)
-    print(f"world ready in {time.perf_counter() - t0:.1f} s: {world.graph}; "
-          f"planted {world.truth}")
-    res = run_port("cuda", world, os.path.join(WORLD_DIR, "runs", "cuda"))
-    check_launched(res, ("K1", "K3"))
-    check_truth(res, world, C_MIN)
-    print(f"calls hold the planted alleles: "
-          f"{[r[:4] for r in res['bestguess'][1:]]}")
-    report_run("port on cuda", res)
-    nw["launches"] = res["launches"]["K1"]
-    pair["launches"] = res["launches"]["K3"]
-    sync()
-
-    phase("(f) small world: the port's CLI on cuda vs on the CPU")
-    compare_devices(typing_world(WORLD_DIR, **SMALL_WORLD), "small")
     sync()
 
     phase("(g) K2 long-read banded NW vs plain")
@@ -841,11 +975,28 @@ def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> None:
     check_nw_long(*path_shape, nw_long)     # the shape (h) launches
     sync()
 
+    phase("(e) end to end: the port's CLI on cuda, IMGT-scale world")
+    world = built_world("typing_world")
+    print(f"world: {world.graph}; planted {world.truth}")
+    res = run_port("cuda", world, os.path.join(WORLD_DIR, "runs", "cuda"))
+    check_launched(res, ("K1", "K3"))
+    check_truth(res, world, C_MIN)
+    print(f"calls hold the planted alleles: "
+          f"{[r[:4] for r in res['bestguess'][1:]]}")
+    report_run("port on cuda", res)
+    nw["launches"] = res["launches"]["K1"]
+    pair["launches"] = res["launches"]["K3"]
+    one_process = {"imgt": (world, res)}
+    sync()
+
+    phase("(f) small world: the port's CLI on cuda vs on the CPU")
+    small = typing_world(WORLD_DIR, **SMALL_WORLD)
+    one_process["small"] = (small, compare_devices(small, "small")["cuda"])
+    sync()
+
     phase("(h) end to end on long reads: the port's CLI on cuda")
-    t0 = time.perf_counter()
-    world = long_read_world(WORLD_DIR)
-    print(f"world ready in {time.perf_counter() - t0:.1f} s: {world.graph}; "
-          f"planted {world.truth}")
+    world = built_world("long_read_world")
+    print(f"world: {world.graph}; planted {world.truth}")
     res = run_port("cuda", world, os.path.join(WORLD_DIR, "runs",
                                                "long_cuda"))
     check_launched(res, ("K2", "K3"))
@@ -863,6 +1014,7 @@ def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> None:
     compare_devices(long_read_world(WORLD_DIR, **SMALL_LONG_WORLD),
                     "small long-read", exact=True)
     sync()
+    return one_process
 
 
 def kir_asm_phases(nw_kir: dict, pair_kir: dict, nw_asm: dict) -> None:
@@ -891,10 +1043,8 @@ def kir_asm_phases(nw_kir: dict, pair_kir: dict, nw_asm: dict) -> None:
     sync()
 
     phase("(k) --action KIR on cuda: 32 haplotypes of 150 kb, reads at 15x")
-    t0 = time.perf_counter()
-    world_kir = kir_world(WORLD_DIR)
-    print(f"world ready in {time.perf_counter() - t0:.1f} s: "
-          f"{world_kir.panel}; {world_kir.n_pairs} pairs from "
+    world_kir = built_world("kir_world")
+    print(f"world: {world_kir.panel}; {world_kir.n_pairs} pairs from "
           f"{world_kir.truth}")
     res = run_action("KIR", "cuda", world_kir,
                      os.path.join(WORLD_DIR, "runs", "kir_cuda"))
@@ -931,6 +1081,329 @@ def kir_asm_phases(nw_kir: dict, pair_kir: dict, nw_asm: dict) -> None:
     sync()
 
 
+def check_tile_ranges(C: int, R: int) -> None:
+    """K3 with a tile range: the ranges that 2 and 4 model ranks take sum to
+    the one-call matrix bit for bit, and one range agrees with the plain
+    version's same range."""
+    import numpy as np
+    import torch
+    from hla_la_tpu_torch.ops.cuda_pair import pair_ll_diff_cuda
+    from hla_la_tpu_torch.ops.pair_ll import (LOG_HALF, pair_ll_diff_plain,
+                                              pair_tiles)
+
+    Ld = torch.from_numpy(np.random.default_rng(1).normal(
+        -40.0, 8.0, (C, R)).astype(np.float32)).cuda()
+    whole, _ = pair_ll_diff_cuda(Ld)
+    n = pair_tiles(C)
+    for ranks in (2, 4):
+        total = torch.zeros_like(whole)
+        for j in range(ranks):
+            lo, hi = n * j // ranks, n * (j + 1) // ranks
+            total += pair_ll_diff_cuda(Ld, (lo, hi - lo))[0]
+        sync()
+        if not torch.equal(total, whole):
+            fail(f"K3 C={C} R={R}: the tile ranges of {ranks} ranks do not "
+                 f"sum to the one-call matrix (max |d| "
+                 f"{(total - whole).abs().max().item():.4g})")
+    # one range against the plain version's: the same cells, and on them
+    # the full pair log-likelihood (rank-1 term added) within the bar
+    last = (n * 3 // 4, n - n * 3 // 4)
+    got, rpad = pair_ll_diff_cuda(Ld, last)
+    want, rpad_plain = pair_ll_diff_plain(Ld, tile_range=last)
+    got = got.cpu().numpy().astype(np.float64)
+    want = want.cpu().numpy().astype(np.float64)
+    rowsum = Ld.double().sum(dim=1).cpu().numpy()
+    base = 0.5 * (rowsum[:, None] + rowsum[None, :])
+    cells = got != 0
+    if not np.array_equal(cells, want != 0) or not np.allclose(
+            (base + got + LOG_HALF * rpad)[cells],
+            (base + want + LOG_HALF * rpad_plain)[cells],
+            rtol=PAIR_RTOL, atol=PAIR_ATOL):
+        fail(f"K3 C={C} R={R}: tile range {last} differs from plain (max "
+             f"abs err {np.abs(got - want).max():.4g} before the padded "
+             f"reads' constant)")
+    print(f"K3 C={C} R={R}: {n} tiles; the ranges of 2 and of 4 ranks sum to "
+          f"the one-call matrix bit for bit; range {last} covers the plain "
+          f"version's cells within rtol={PAIR_RTOL} atol={PAIR_ATOL}")
+
+
+def same_files(got_dir: str, want_dir: str, tag: str) -> int:
+    """Fail unless both directories hold the same files (align shards
+    aside) with the same bytes; returns their number."""
+    def tree(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, files in os.walk(root) for f in files
+                      if "align_shard" not in f)
+    names = tree(want_dir)
+    if tree(got_dir) != names:
+        fail(f"{tag}: files {sorted(set(tree(got_dir)) ^ set(names))} are "
+             f"in one run only")
+    for name in names:
+        with open(os.path.join(got_dir, name), "rb") as a, \
+                open(os.path.join(want_dir, name), "rb") as b:
+            if a.read() != b.read():
+                fail(f"{tag}: {name} differs from the one-process run")
+    return len(names)
+
+
+def flag_phases() -> None:
+    """Phases (n) and (o): K3's launch rule and tile ranges; the CLI's
+    paralog defence and an ambiguous call, cuda against the CPU."""
+    from hla_la_tpu_torch.sim import (ambiguous_q1, ambiguous_world,
+                                      decoy_world)
+
+    phase("(n) K3: the read range cut by work per block; tile ranges")
+    for C, R in ((32, 22500), (6, 22500)):
+        rec = {}
+        check_pair(C, R, rec)
+        if rec["read_parts"] <= 1 or rec["ms"] >= rec["plain_ms"]:
+            fail(f"K3 C={C} R={R}: {rec['read_parts']} part(s), kernel "
+                 f"{rec['ms']:.3f} ms vs plain {rec['plain_ms']:.3f} ms")
+    check_tile_ranges(PAIR_C, PAIR_R)
+    check_tile_ranges(32, 21803)
+    sync()
+
+    phase("(o) --decoyFasta and an ambiguous call: cuda vs the CPU")
+    decoy = decoy_world(WORLD_DIR)
+    runs = {dev: run_port(dev, decoy, os.path.join(WORLD_DIR, "runs",
+                                                   f"decoy_{dev}"))
+            for dev in ("cuda", "cpu")}
+    check_same_run(runs["cuda"], runs["cpu"])
+    check_truth(runs["cuda"], decoy, 0)
+    dropped = [runs[dev]["decoy_dropped_pairs"] for dev in ("cuda", "cpu")]
+    if dropped[0] != dropped[1] or dropped[0] < 0.9 * decoy.n_paralog_pairs:
+        fail(f"decoy world: {dropped[0]} pairs dropped on cuda, "
+             f"{dropped[1]} on the CPU, of {decoy.n_paralog_pairs} paralog "
+             f"pairs")
+    print(f"decoy world: {dropped[0]} of {decoy.n_paralog_pairs} paralog "
+          f"pairs dropped on cuda as on the CPU; the same calls")
+    runs = compare_devices(ambiguous_world(WORLD_DIR), "ambiguous",
+                           truth=False)
+    try:
+        inside = ambiguous_q1(runs["cuda"]["bestguess"])
+    except AssertionError as exc:
+        fail(f"ambiguous world: {exc}")
+    print(f"ambiguous world: Q1 {inside} strictly inside (0.05, 0.95) on "
+          f"cuda; rows {[r[:5] for r in runs['cuda']['bestguess'][1:]]}")
+    sync()
+
+
+def run_subprocess_cli(argv: list, tag: str) -> str:
+    """The port's CLI in a process of its own (so that every rank's log is
+    caught); returns its standard error."""
+    proc = subprocess.run([sys.executable, "-m", "hla_la_tpu_torch", *argv],
+                          cwd=ROOT, capture_output=True, text=True)
+    sys.stderr.write(proc.stderr[-4000:])
+    if proc.returncode != 0:
+        fail(f"{tag}: exit code {proc.returncode}")
+    return proc.stderr
+
+
+def check_sharded_cli(world, one: dict, n_ranks: int, tag: str) -> dict:
+    """``--sharded n_ranks`` on `world` against the one-process cuda run
+    `one`: the same calls and coverage track, Q1/Q2 within Q_TOL; on every
+    rank every NW job on a card and K1 and K3 launched.  Returns the
+    launches of rank 0."""
+    out_dir = os.path.join(WORLD_DIR, "runs", tag)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    log = run_subprocess_cli(
+        ["--action", "HLA", *world.cli_args(), "--graph", world.graph,
+         "--sampleID", "S1", "--outputDirectory", out_dir, "--device",
+         "cuda", "--sharded", str(n_ranks)], tag)
+    wall = time.perf_counter() - t0
+    jobs = [int(n) for n in re.findall(r"n_chain_extensions: (\d+)", log)]
+    on_card = [int(n) for n in re.findall(r"nw_jobs_on_cuda: (\d+)", log)]
+    if len(jobs) != n_ranks or jobs != on_card or jobs[0] != one["nw_jobs"]:
+        fail(f"{tag}: NW jobs per rank {jobs}, on a card {on_card}, "
+             f"one process {one['nw_jobs']}")
+    launches = [dict((k, int(n)) for k, n in re.findall(r"(K\d) (\d+)", ln))
+                for ln in re.findall(r"rank \d+: exit code 0, kernel "
+                                     r"launches (.*)", log)]
+    if len(launches) != n_ranks or any(
+            r["K1"] <= 0 or r["K3"] <= 0 for r in launches):
+        fail(f"{tag}: kernel launches per rank {launches}")
+    got = {"dir": out_dir, "bestguess": read_table(
+        os.path.join(out_dir, "hla", "R1_bestguess.txt"))}
+    q_err = check_same_run(got, one)
+    print(f"{tag}: {n_ranks} rank(s) agree with the one-process run (calls "
+          f"and coverage track identical, max |dQ| {q_err:.3g}); {jobs[0]} "
+          f"NW jobs, all on the card; launches per rank {launches}; whole "
+          f"CLI with its process start {wall:.3f} s (one process "
+          f"{one['wall_s']:.3f} s)")
+    return launches[0]
+
+
+def worker_phases(one_process: dict, rec: dict) -> None:
+    """Phase (p): worker processes and align shards on the one card,
+    against the one-process run of (e)."""
+    from hla_la_tpu_torch.cli import main as port_main
+    from hla_la_tpu_torch.graph.package import GraphPackage
+    from hla_la_tpu_torch.models.pipeline import (pair_up_fastq,
+                                                  run_hla_typing)
+    from hla_la_tpu_torch.ops.cuda_pair import pair_ll_diff_cuda
+    from hla_la_tpu_torch.utils.config import RunConfig, TyperConfig
+
+    world, one = one_process["imgt"]
+    runs = os.path.join(WORLD_DIR, "runs")
+
+    phase("(p) --maxThreads 4 and align shards on cuda, IMGT-scale world")
+    res = run_port("cuda", world, os.path.join(runs, "workers"),
+                   ("--maxThreads", "4"))
+    n = same_files(res["dir"], one["dir"], "--maxThreads 4")
+    if res["worker_launches"].get("K1", 0) <= 0 or res["launches"]["K3"] <= 0:
+        fail(f"--maxThreads 4: launches in the workers "
+             f"{res['worker_launches']}, in the parent {res['launches']}")
+    report_run("port on cuda, 4 workers", res)
+    print(f"--maxThreads 4: {n} files byte-equal to the one-process run; "
+          f"all {res['nw_jobs']} NW jobs on the card; K1 launches in the "
+          f"workers {res['worker_launches']['K1']} (parent "
+          f"{res['launches']['K1']}: the insert-size estimate); one process "
+          f"vs 4 workers: align {one['align_s']:.3f} vs {res['align_s']:.3f} "
+          f"s, type {one['type_s']:.3f} vs {res['type_s']:.3f} s, whole CLI "
+          f"{one['wall_s']:.3f} vs {res['wall_s']:.3f} s")
+    ready = res["workers_ready"]
+    if len(ready) != 4:
+        fail(f"--maxThreads 4: {len(ready)} workers reported ready")
+    last = max(r[0] for r in ready)
+    print(f"the 4 workers were ready {min(r[0] for r in ready):.1f}-"
+          f"{last:.1f} s after the pool was made (process start and imports "
+          f"{max(r[1] for r in ready):.1f} s, package, aligner and the "
+          f"process's first CUDA call {max(r[2] for r in ready):.1f} s, "
+          f"device context {max(r[3] for r in ready):.1f} s at most); the "
+          f"{res['pairs']} pairs then took {res['align_s'] - last:.3f} s "
+          f"({one['align_s'] / max(res['align_s'] - last, 1e-9):.2f} times "
+          f"the one-process rate)")
+    rec["nw_workers"]["launches"] = res["worker_launches"]["K1"]
+    rec["pair_workers"].update({k: v for k, v in rec["pair"].items()
+                                if k not in ("path", "launches")})
+    # the workers' NW calls: a chunk of 256 pairs' jobs each
+    check_nw(round(res["nw_jobs"] / res["worker_launches"]["K1"]), 101, 32,
+             rec["nw_workers"])
+
+    # the same run with the typing workers' gate lowered (two loci are
+    # under its default): K3 is then launched in the workers
+    log = io.StringIO()
+    out_dir = os.path.join(runs, "typing_workers")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    pair_ll_diff_cuda.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(_Tee(sys.stderr, log)):
+        run_hla_typing(
+            GraphPackage(world.graph),
+            pairs=pair_up_fastq(world.fastq1, world.fastq2),
+            output_dir=out_dir, device="cuda",
+            cfg=RunConfig(max_threads=4, typer=TyperConfig(
+                min_reads_for_typing_workers=1,
+                min_loci_for_typing_workers=2)))
+    wall = time.perf_counter() - t0
+    same_files(out_dir, one["dir"], "typing workers")
+    m = re.search(r"in typing workers: K3 (\d+)", log.getvalue())
+    if not m or int(m.group(1)) <= 0 or pair_ll_diff_cuda.launches != 0:
+        fail(f"typing workers: K3 launches in the workers "
+             f"{m and m.group(1)}, in the parent {pair_ll_diff_cuda.launches}")
+    rec["pair_workers"]["launches"] = int(m.group(1))
+    print(f"typing workers: byte-equal to the one-process run; K3 launched "
+          f"{m.group(1)} times in the workers, never in the parent; "
+          f"run_hla_typing {wall:.3f} s")
+
+    shard_dir = os.path.join(runs, "shards")
+    shutil.rmtree(shard_dir, ignore_errors=True)
+    walls = []
+    for host in ("0", "1"):
+        t0 = time.perf_counter()
+        log = io.StringIO()
+        with contextlib.redirect_stderr(_Tee(sys.stderr, log)):
+            rc = port_main(["--action", "HLA", *world.cli_args(), "--graph",
+                            world.graph, "--sampleID", "S1",
+                            "--outputDirectory",
+                            os.path.join(runs, f"host{host}"), "--device",
+                            "cuda", "--nHosts", "2", "--hostIdx", host,
+                            "--shardDir", shard_dir])
+        walls.append(time.perf_counter() - t0)
+        jobs = re.search(r"n_chain_extensions: (\d+)", log.getvalue())
+        on_card = re.search(r"nw_jobs_on_cuda: (\d+)", log.getvalue())
+        if rc != 0 or not jobs or not on_card \
+                or jobs.group(1) != on_card.group(1):
+            fail(f"align shard {host}: rc {rc}, not every NW job on the card")
+    merged = os.path.join(runs, "merged")
+    shutil.rmtree(merged, ignore_errors=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(_Tee(sys.stderr, io.StringIO())):
+        rc = port_main(["--action", "HLA", "--graph", world.graph,
+                        "--sampleID", "S1", "--outputDirectory", merged,
+                        "--device", "cuda", "--mergeShards", shard_dir])
+    walls.append(time.perf_counter() - t0)
+    if rc != 0:
+        fail(f"--mergeShards: rc {rc}")
+    n = same_files(merged, one["dir"], "shards + merge")
+    print(f"--nHosts 2 + --mergeShards: {n} files byte-equal to the "
+          f"one-process run; align shards {walls[0]:.3f} and {walls[1]:.3f} "
+          f"s, merge and typing {walls[2]:.3f} s")
+    sync()
+
+
+def sharded_phases(one_process: dict, rec: dict) -> None:
+    """Phase (q): the sharded backend on the one card, against the
+    one-process runs of (e) and (f)."""
+    import numpy as np
+    from hla_la_tpu_torch.models.aligner import NWRunner
+    from hla_la_tpu_torch.ops.pair_ll import pair_ll_reduction, pair_tiles
+    from hla_la_tpu_torch.parallel import launch
+    from hla_la_tpu_torch.parallel.mesh import model_axis
+
+    world, one = one_process["imgt"]
+    phase("(q) the sharded backend on one card: NCCL at one rank, gloo at "
+          "two and four ranks (traffic between cards is not measured here)")
+    rng = np.random.default_rng(7)
+    B, L, W = 4097, 101, 32            # not divisible by 2 or 4
+    reads, lens, refs = nw_world(rng, B, L, W)
+    want_nw = [a.copy() for a in NWRunner("cuda").run(reads, lens, refs)]
+    Lmat = rng.normal(-40.0, 8.0, (PAIR_C, 4115)).astype(np.float32)
+    want_pair = pair_ll_reduction(Lmat, "cuda")
+    # a process takes seconds to reach the card, one after the other: one
+    # start per rank serves both functions; the 2 x 2 mesh is the CLI
+    # run's below
+    for n_ranks in (1, 2):
+        n_model = model_axis(n_ranks)
+        t0 = time.perf_counter()
+        got = launch.run_ranks(launch.rank_nw_and_pair, n_ranks, "cuda",
+                               (reads, lens, refs, Lmat))
+        for rank, (got_nw, got_pair, launches) in enumerate(got):
+            if not all(np.array_equal(a, b)
+                       for a, b in zip(got_nw, want_nw)):
+                fail(f"ShardedNW on {n_ranks} ranks: rank {rank} differs "
+                     f"from NWRunner.run")
+            if not np.allclose(got_pair, want_pair, rtol=PAIR_RTOL,
+                               atol=PAIR_ATOL):
+                fail(f"pair_ll_reduction_sharded on {n_ranks} ranks: max "
+                     f"abs err {np.abs(got_pair - want_pair).max()}")
+            if launches["K1"] != 1 or launches["K3"] != 1:
+                fail(f"rank {rank} of {n_ranks}: launches {launches}")
+        err = max(float(np.abs(g[1] - want_pair).max()) for g in got)
+        print(f"{n_ranks} rank(s), model axis {n_model} "
+              f"({'NCCL' if n_ranks == 1 else 'gloo, host tensors'}): "
+              f"ShardedNW bit-equal to NWRunner.run at B={B} L={L} W={W}; "
+              f"pair_ll_reduction_sharded at C={PAIR_C} R={Lmat.shape[1]} "
+              f"within rtol={PAIR_RTOL} atol={PAIR_ATOL} of one device (max "
+              f"abs err {err:.4g}), K1 and K3 launched once on every rank; "
+              f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+    small, small_one = one_process["small"]
+    check_sharded_cli(small, small_one, 1, "sharded_nccl_1")
+    launches = check_sharded_cli(world, one, 4, "sharded_gloo_4")
+    rec["nw_sharded"]["launches"] = launches["K1"]
+    rec["pair_sharded"]["launches"] = launches["K3"]
+    # a rank's calls: a quarter of each NW batch; of each locus, half the
+    # tile list (rank 0: the first half) on half the reads
+    if model_axis(4) != 2:
+        fail("four ranks no longer form a 2 x 2 mesh")
+    check_nw(round(one["nw_jobs"] / launches["K1"] / 4), 101, 32,
+             rec["nw_sharded"])
+    C, R = max(one["loci"].values(), key=lambda cr: cr[1])
+    check_pair(C, -(-R // 2), rec["pair_sharded"], (0, pair_tiles(C) // 2))
+    sync()
+
+
 def main() -> int:
     try:
         import torch
@@ -958,8 +1431,16 @@ def main() -> int:
     print(lib.log.strip())
 
     rec = kernel_records()
-    hla_phases(rec["nw"], rec["pair"], rec["nw_long"], rec["pair_long"])
-    kir_asm_phases(rec["nw_kir"], rec["pair_kir"], rec["nw_asm"])
+    start_world_builds()
+    try:
+        one_process = hla_phases(rec["nw"], rec["pair"], rec["nw_long"],
+                                 rec["pair_long"])
+        kir_asm_phases(rec["nw_kir"], rec["pair_kir"], rec["nw_asm"])
+    finally:
+        stop_world_builds()
+    flag_phases()
+    worker_phases(one_process, rec)
+    sharded_phases(one_process, rec)
 
     print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rec.values())}))

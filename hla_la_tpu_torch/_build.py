@@ -37,7 +37,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _i64 = ctypes.c_longlong
 # argtypes of every C entry point; they return int unless _RESTYPES says so
-_RESTYPES = {"hla_pair_ll_scratch_floats": _i64}
+_RESTYPES = {"hla_pair_ll_scratch_floats": _i64, "hla_pair_ll_tiles": _i64}
 # inputs, B, L, W, the four scores, outputs, the launch plan's six ints
 # (ops/cuda_nw.py::NWPlan), the stream
 _NW_FORWARD = [_vp, _vp, _vp, _int, _int, _int,
@@ -47,8 +47,10 @@ _NW_FORWARD = [_vp, _vp, _vp, _int, _int, _int,
 _ENTRY_POINTS = {
     "hla_banded_nw_forward": _NW_FORWARD,
     "hla_banded_nw_long_forward": _NW_FORWARD,
-    "hla_pair_ll_diff": [_vp, _int, _int, _vp, _vp, _i64, _vp],
-    "hla_pair_ll_scratch_floats": [_int, _int],
+    "hla_pair_ll_diff": [_vp, _int, _int, _vp, _vp, _i64, _i64, _i64, _vp],
+    "hla_pair_ll_scratch_floats": [_int, _int, _i64],
+    "hla_pair_ll_tiles": [_int],
+    "hla_pair_ll_parts": [_int, _int],
     "hla_pair_ll_read_chunk": [],
 }
 

@@ -7,7 +7,14 @@ reads from ``--FASTQU``, or reads extracted from a ``--BAM`` (or CRAM with
 rules are the reference CLI's (``hla_la_tpu/cli.py:199-269``): reads of a
 BAM are extracted by the knownReferences match; those whose mate was not
 extracted are typed as unpaired; in long-read mode every pair is flattened
-into unpaired reads and reads over 50 kb are split.
+into unpaired reads and reads over 50 kb are split.  Its many-process
+forms: ``--maxThreads N`` aligns (and, at WGS scale, types) in N worker
+processes that share the device; ``--nHosts N --hostIdx I --shardDir D``
+aligns read slice I of N into a shard file and ``--mergeShards D`` types
+from all of them; ``--sharded N`` (the reference's ``--backend sharded``)
+runs N ranks of a ``torch.distributed`` group on this host, NW batches
+split over all of them and the pair reduction over a reads x clusters mesh
+whose cluster axis follows from N as in the reference.
 
 ``--action KIR`` types reads against a linear-ALT panel (``--ALTpanel``: a
 package directory or a FASTA), ``--action ASM`` types assembly contigs
@@ -19,6 +26,8 @@ non-zero).
   python -m hla_la_tpu_torch --action HLA --FASTQ1 R_1.fq --FASTQ2 R_2.fq \\
       --graph /path/to/graphdir --sampleID S1 --workingDir out/ --device cuda
   python -m hla_la_tpu_torch --action HLA --FASTQU long.fq --longReads ont2d \\
+      --graph /path/to/graphdir --sampleID S1 --workingDir out/ --device cuda
+  python -m hla_la_tpu_torch --action HLA --BAM in.bam --maxThreads 4 \\
       --graph /path/to/graphdir --sampleID S1 --workingDir out/ --device cuda
   python -m hla_la_tpu_torch --action KIR --ALTpanel kir_pkg/ --BAM in.bam \\
       --sampleID S1 --workingDir out/ --device cuda
@@ -39,18 +48,21 @@ from .io.bam import (BamReader, bam_to_fastq_pairs,
                      estimate_insert_size_from_bam, extract_reads, is_cram)
 from .io.cram import CramReader
 from .io.fasta import read_fasta
-from .io.fastq import FastqRead, read_fastq
+from .io.fastq import FastqRead, read_fastq, write_fastq
 from .models.asm import AssemblyTyper
 from .models.kir_package import KirPackage, build_kir_package
 from .models.linear_alts import LinearALTsTyper
-from .models.pipeline import pair_up_fastq, run_hla_typing
+from .models.pipeline import (align_shard, merge_shards_and_type,
+                              pair_up_fastq, run_hla_typing)
 from .sim.read_sim import ReadSimulator
 from .utils.config import RunConfig, TyperConfig
-from .utils.nomenclature import read_truth_file
+from .utils.nomenclature import evaluate_types, read_truth_file
 from .utils.timing import log_progress
 
 
-def main(argv=None) -> int:
+def main(argv=None, mesh=None) -> int:
+    """`mesh`: set by parallel.launch.rank_cli on a rank of a --sharded run
+    (a parallel.mesh.Mesh); never by a user."""
     ap = argparse.ArgumentParser(prog="hla_la_tpu_torch",
                                  description=__doc__)
     ap.add_argument("--action", default="HLA")
@@ -63,12 +75,31 @@ def main(argv=None) -> int:
     ap.add_argument("--workingDir", default=".")
     ap.add_argument("--longReads", default="",
                     choices=["", "ont2d", "pacbio"])
+    ap.add_argument("--maxThreads", type=int, default=1,
+                    help="worker processes for alignment and, at WGS scale, "
+                         "per-locus typing; each holds a context on "
+                         "--device")
     ap.add_argument("--outputDirectory", default=None)
     ap.add_argument("--moreReferencesDir", default=None)
     ap.add_argument("--ref", help="reference genome FASTA (required to "
                     "decode reference-based CRAM input)")
+    ap.add_argument("--mapAgainstCompleteGenome", type=int, default=0,
+                    help="1 = paralog defense via decoy index over the "
+                    "package's extendedReferenceGenome (HLA-LA.cpp:617)")
+    ap.add_argument("--keepExtractedFastq", type=int, default=0,
+                    help="with --action HLA: write the extracted reads as "
+                         "R_1/R_2/R_U.fastq in the output directory (the "
+                         "reference keeps these, HLA-LA.pl:465-502)")
+    ap.add_argument("--extractExonkMerCounts", type=int, default=0,
+                    help="with --action HLA: also write per-exon k-mer "
+                         "counts over the extracted reads "
+                         "(HLA-LA.pl:543-552); not ported yet, refused")
+    ap.add_argument("--decoyFasta", default="",
+                    help="explicit decoy genome FASTA for the paralog "
+                    "defense (overrides extendedReferenceGenome)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--trueHLA", help="truth table for --action ASM")
+    ap.add_argument("--trueHLA", help="truth table for concordance "
+                    "evaluation (--action HLA, --action ASM)")
     ap.add_argument("--ASMfasta", help="assembly contigs for --action ASM; "
                     "aligned haplotypes for --action buildKIRpanel")
     ap.add_argument("--ALTpanel", help="linear ALT panel (package dir or "
@@ -77,8 +108,25 @@ def main(argv=None) -> int:
                     "(hap gene start0 stop0) for --action buildKIRpanel")
     ap.add_argument("--resolution", type=int, default=2,
                     help="nomenclature fields compared in evaluation")
+    ap.add_argument("--nHosts", type=int, default=1,
+                    help="--action HLA: total hosts of a read-slice "
+                         "alignment run")
+    ap.add_argument("--hostIdx", type=int, default=0,
+                    help="--action HLA with --nHosts>1: this host's index")
+    ap.add_argument("--shardDir",
+                    help="--action HLA with --nHosts>1: directory this "
+                         "host's align shard is written to")
+    ap.add_argument("--mergeShards",
+                    help="--action HLA: merge align shards from this "
+                         "directory and run typing (no read input needed)")
+    ap.add_argument("--sharded", type=int, default=0,
+                    help="--action HLA: ranks of a torch.distributed group "
+                         "started on this host (0: one process); rank r "
+                         "computes on card r modulo the card count")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+    args.mesh = mesh
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     action = ACTIONS.get(args.action)
     if action is None:
         print(f"--action {args.action}: not yet ported (only "
@@ -203,18 +251,99 @@ def action_hla(args) -> int:
     pkg = _require_graph(args)
     out_dir = args.outputDirectory or os.path.join(args.workingDir,
                                                    args.sampleID)
-    os.makedirs(out_dir, exist_ok=True)
+    if args.extractExonkMerCounts:
+        # validate flag combinations BEFORE the (potentially hours-long)
+        # extraction+typing run, not after it
+        if args.longReads:
+            raise SystemExit(
+                "--extractExonkMerCounts is a short-read feature "
+                "(HLA-LA.pl:545)")
+        if args.nHosts > 1 or args.mergeShards:
+            raise SystemExit(
+                "--extractExonkMerCounts is not available on sharded "
+                "multi-host runs: counts must cover ALL reads — run "
+                "--action extractkMerCounts on the full FASTQs instead")
+        raise SystemExit(
+            "--extractExonkMerCounts needs tools.extract_kmer_counts, which "
+            "this package does not hold yet; run the reference package's "
+            "--action extractkMerCounts on the extracted FASTQs "
+            "(--keepExtractedFastq 1) instead")
+    if args.sharded and args.mesh is None:
+        # this process only starts the ranks; each runs this action again
+        # with its mesh
+        from .parallel.launch import rank_cli, run_ranks
+        log_progress(f"starting {args.sharded} ranks on {args.device}")
+        ranks = run_ranks(rank_cli, args.sharded, args.device,
+                          args=(args.argv,))
+        for rank, (rc, launches) in enumerate(ranks):
+            log_progress(f"rank {rank}: exit code {rc}, kernel launches "
+                         + ", ".join(f"{k} {n}" for k, n in launches.items()))
+        return max(rc for rc, _ in ranks)
+    writes = args.mesh is None or args.mesh.rank == 0
+    if writes:
+        os.makedirs(out_dir, exist_ok=True)
+
+    if args.mergeShards:
+        # multi-host HLA: typing over every host's align shard
+        cfg = RunConfig(graph_dir=args.graph, sample_id=args.sampleID,
+                        working_dir=args.workingDir,
+                        long_reads=args.longReads,
+                        max_threads=args.maxThreads)
+        res = merge_shards_and_type(pkg, args.mergeShards, out_dir, cfg,
+                                    device=args.device, sharded=args.mesh)
+        log_progress(f"typing complete: {len(res.results)} loci -> "
+                     f"{out_dir}/hla/R1_bestguess.txt")
+        return 0
+
     pairs, unpaired = _read_input(args, pkg)
+    if args.keepExtractedFastq and writes:
+        # the reference leaves the extraction FASTQs (R_1/R_2/R_U) in the
+        # sample working dir (HLA-LA.pl:465-502); extraction here is
+        # in-memory, so materialise them only on request
+        if pairs:
+            write_fastq(os.path.join(out_dir, "R_1.fastq"),
+                        [p[0] for p in pairs])
+            write_fastq(os.path.join(out_dir, "R_2.fastq"),
+                        [p[1] for p in pairs])
+        if unpaired:
+            write_fastq(os.path.join(out_dir, "R_U.fastq"), list(unpaired))
+        log_progress(f"extraction FASTQs written to {out_dir}")
+
     cfg = RunConfig(graph_dir=args.graph, sample_id=args.sampleID,
-                    working_dir=args.workingDir, long_reads=args.longReads)
+                    working_dir=args.workingDir, long_reads=args.longReads,
+                    max_threads=args.maxThreads,
+                    map_against_complete_genome=bool(
+                        args.mapAgainstCompleteGenome),
+                    decoy_fasta=args.decoyFasta)
+    if args.nHosts > 1:
+        # multi-host HLA: align this host's read slice, write a shard
+        shard_dir = args.shardDir or os.path.join(out_dir, "align_shards")
+        align_shard(pkg, pairs, unpaired, shard_dir, args.hostIdx,
+                    args.nHosts, cfg, device=args.device, sharded=args.mesh)
+        return 0
     res = run_hla_typing(pkg, pairs=pairs, unpaired=unpaired,
-                         output_dir=out_dir, cfg=cfg, device=args.device)
+                         output_dir=out_dir, cfg=cfg, device=args.device,
+                         sharded=args.mesh)
     log_progress(f"typing complete: {len(res.results)} loci -> "
                  f"{out_dir}/hla/R1_bestguess.txt")
+    if not writes:
+        return 0
     for r in res.results:
         a1, a2 = r.alleles_g_or_raw()
         print(f"{r.locus}\t{a1}\t{a2}\tQ1={r.q1_allele1:.4f}/"
               f"{r.q1_allele2:.4f}")
+    if args.trueHLA:
+        truth_all = read_truth_file(args.trueHLA)
+        truth = truth_all.get(args.sampleID)
+        if truth is None:
+            log_progress(f"--trueHLA: no row for {args.sampleID}")
+        else:
+            inferred = {r.locus: (r.allele1_id, r.allele2_id)
+                        for r in res.results}
+            ev = evaluate_types(inferred, truth, args.resolution)
+            print(f"truth concordance: {ev.n_alleles_correct}/"
+                  f"{ev.n_alleles_total} alleles "
+                  f"({ev.accuracy * 100:.1f}%) over {ev.n_loci} loci")
     return 0
 
 

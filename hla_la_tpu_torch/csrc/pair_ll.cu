@@ -37,11 +37,18 @@
 //   the block's instructions.  A read past R or a row past C is zero-filled
 //   by the copy itself (source size 0): such a read adds log 2 to every cell,
 //   which the wrapper cancels with log(1/2) per padded read.
-// - The read range is cut into n_split equal parts when that evens out the
-//   last wave (630 tiles on 264 block slots are 2.4 waves, 1,260 half-tiles
-//   4.8): each part's partial tile goes to scratch memory and a second
-//   kernel adds the parts in a fixed order.  The host picks n_split from the
-//   tile count and the occupancy the runtime reports.
+// - The read range is cut into n_split equal parts: each part's partial tile
+//   goes to scratch memory and a second kernel adds the parts in a fixed
+//   order.  The host picks n_split from the matrix's tile count and the
+//   occupancy the runtime reports.  With at least as many tiles as the card
+//   has block slots, the cut evens out the last wave (630 tiles on 264 slots
+//   are 2.4 waves, 1,260 half-tiles 4.8).  With fewer tiles (the linear-ALT
+//   typer's C = 32 is ONE tile) the cut is by work per block: as many parts
+//   as the free slots take, each with at least MIN_CHUNKS_FEW_TILES stages.
+// - A launch may cover a range of the tile list only (tile_lo, tile_count):
+//   ranks of a model axis each take a range, into outputs that start as
+//   zeros and are summed.  The cut of the reads follows the whole matrix, so
+//   a range's cells are bit-equal to the one-call matrix's.
 //
 // Accuracy and determinism: each stage of 32 reads is summed into fresh
 // register partials, and the partial is added to the running total with a
@@ -62,6 +69,7 @@ constexpr int TPB = 256;   // threads per block: 16 x 16, 4 x 4 cells each
 constexpr int LD = TC + 4; // shared-memory row stride: rows stay 16-B aligned
 constexpr int MAX_SPLIT = 4;
 constexpr int MIN_CHUNKS_PER_SPLIT = 16;
+constexpr int MIN_CHUNKS_FEW_TILES = 4;   // stages per part when tiles are few
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -124,13 +132,13 @@ __device__ __forceinline__ void store_pair(float* __restrict__ out, int C,
 
 __global__ void __launch_bounds__(TPB, 2)
 pair_ll_kernel(const float* __restrict__ L, int C, int R, int n_tiles,
-               int n_chunks, int n_split, float* __restrict__ out,
-               float* __restrict__ scratch) {
+               int tile_lo, int n_chunks, int n_split,
+               float* __restrict__ out, float* __restrict__ scratch) {
   __shared__ __align__(16) float As[2][RK * LD];
   __shared__ __align__(16) float Bs[2][RK * LD];
 
   int ti, tj;
-  tile_of(blockIdx.x, n_tiles, &ti, &tj);
+  tile_of(tile_lo + blockIdx.x, n_tiles, &ti, &tj);
   const int i0 = ti * TC, j0 = tj * TC;
   const int split = blockIdx.y;
   const int k_lo = (int)((long long)n_chunks * split / n_split);
@@ -235,31 +243,31 @@ pair_ll_kernel(const float* __restrict__ L, int C, int R, int n_tiles,
   }
 }
 
-// out tile = the partial tiles of the n_split read ranges, added in order
+// out tile = the partial tiles of the n_split read ranges, added in order.
+// One cell per thread and TC * TC / TPB blocks per tile: with one tile and
+// a few hundred parts, a single block walking all of them would take longer
+// than the parts themselves.
 __global__ void __launch_bounds__(TPB)
 pair_ll_join_kernel(const float* __restrict__ scratch, int C, int n_tiles,
-                    int n_split, float* __restrict__ out) {
+                    int tile_lo, int n_split, float* __restrict__ out) {
   int ti, tj;
-  tile_of(blockIdx.x, n_tiles, &ti, &tj);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  tile_of(tile_lo + blockIdx.x, n_tiles, &ti, &tj);
+  const int cell = blockIdx.y * TPB + threadIdx.x;
   const long long split_stride = (long long)gridDim.x * (TC * TC);
-  const float* part = scratch + (long long)blockIdx.x * (TC * TC);
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int cell = (4 * ty + m) * TC + 4 * tx + n;
-      double sum = 0.0;
-      for (int s = 0; s < n_split; ++s)
-        sum += (double)part[s * split_stride + cell];
-      store_pair(out, C, ti * TC + 4 * ty + m, tj * TC + 4 * tx + n,
-                 ti == tj, (float)sum);
-    }
+  const float* part = scratch + (long long)blockIdx.x * (TC * TC) + cell;
+  double sum = 0.0;
+#pragma unroll 8
+  for (int s = 0; s < n_split; ++s)
+    sum += (double)part[s * split_stride];
+  store_pair(out, C, ti * TC + cell / TC, tj * TC + cell % TC, ti == tj,
+             (float)sum);
 }
 
-// Parts the read range is cut into: the count, up to MAX_SPLIT, that fills
-// the last wave of blocks best (the smallest such count), with at least
-// MIN_CHUNKS_PER_SPLIT stages of RK reads in each part.
+// Parts the read range is cut into.  With at least as many tiles as block
+// slots: the count, up to MAX_SPLIT, that fills the last wave of blocks best
+// (the smallest such count), with at least MIN_CHUNKS_PER_SPLIT stages of RK
+// reads in each part.  With fewer tiles: by work per block, as many parts as
+// the slots hold per tile, each with at least MIN_CHUNKS_FEW_TILES stages.
 int choose_split(long long tiles, int n_chunks, int* err) {
   static int slots = 0;   // blocks the card holds at once
   if (slots == 0) {
@@ -275,6 +283,12 @@ int choose_split(long long tiles, int n_chunks, int* err) {
       return 1;
     }
     slots = sms * per_sm;
+  }
+  if (tiles < slots) {
+    const long long by_slots = slots / tiles;
+    const long long by_work = n_chunks / MIN_CHUNKS_FEW_TILES;
+    const long long parts = by_slots < by_work ? by_slots : by_work;
+    return parts < 1 ? 1 : (int)parts;
   }
   int best = 1;
   double best_fill = 0.0;
@@ -302,37 +316,57 @@ long long tile_count(int C) {
 // next multiple of hla_pair_ll_read_chunk().
 extern "C" int hla_pair_ll_read_chunk() { return RK; }
 
-// float32 elements of scratch memory hla_pair_ll_diff needs for (C, R);
-// negative: a CUDA error code, negated
-extern "C" long long hla_pair_ll_scratch_floats(int C, int R) {
-  if (C <= 0 || R <= 0) return 0;
-  int err = 0;
-  const int n_split = choose_split(tile_count(C), (R + RK - 1) / RK, &err);
-  if (err != 0) return -(long long)err;
-  return n_split > 1 ? (long long)n_split * tile_count(C) * (TC * TC) : 0;
+// 64 x 64 tiles with c1 <= c2 of a C x C matrix, the length of the tile list
+extern "C" long long hla_pair_ll_tiles(int C) {
+  return C > 0 ? tile_count(C) : 0;
 }
 
+// parts the read range of a (C, R) call is cut into; negative: a CUDA error
+// code, negated
+extern "C" int hla_pair_ll_parts(int C, int R) {
+  if (C <= 0 || R <= 0) return 1;
+  int err = 0;
+  const int n_split = choose_split(tile_count(C), (R + RK - 1) / RK, &err);
+  return err != 0 ? -err : n_split;
+}
+
+// float32 elements of scratch memory hla_pair_ll_diff needs for `tiles`
+// tiles of a (C, R) call; negative: a CUDA error code, negated
+extern "C" long long hla_pair_ll_scratch_floats(int C, int R,
+                                                long long tiles) {
+  if (C <= 0 || R <= 0 || tiles <= 0) return 0;
+  const int n_split = hla_pair_ll_parts(C, R);
+  if (n_split < 0) return n_split;
+  return n_split > 1 ? (long long)n_split * tiles * (TC * TC) : 0;
+}
+
+// Tiles tile_lo .. tile_lo + tile_count - 1 of the tile list (row-major over
+// the upper triangle of tiles) are computed and stored, with their mirrors;
+// the rest of `out` is left as it is.
 extern "C" int hla_pair_ll_diff(const void* L, int C, int R, void* out,
                                 void* scratch, long long scratch_floats,
+                                long long tile_lo, long long tiles,
                                 void* stream) {
-  if (C <= 0 || R <= 0) return (int)cudaGetLastError();
+  if (C <= 0 || R <= 0 || tiles <= 0) return (int)cudaGetLastError();
   const int n_tiles = (C + TC - 1) / TC;
-  const long long tiles = tile_count(C);
   const int n_chunks = (R + RK - 1) / RK;
+  if (tile_lo < 0 || tile_lo + tiles > tile_count(C) ||
+      tile_count(C) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   int err = 0;
-  const int n_split = choose_split(tiles, n_chunks, &err);
+  // by the whole matrix, whatever the range: see the header
+  const int n_split = choose_split(tile_count(C), n_chunks, &err);
   if (err != 0) return err;
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (n_split > 1 &&
       (scratch == nullptr || scratch_floats < n_split * tiles * (TC * TC)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   pair_ll_kernel<<<dim3((unsigned)tiles, n_split), TPB, 0, st>>>(
-      (const float*)L, C, R, n_tiles, n_chunks, n_split, (float*)out,
-      (float*)scratch);
+      (const float*)L, C, R, n_tiles, (int)tile_lo, n_chunks, n_split,
+      (float*)out, (float*)scratch);
   err = (int)cudaGetLastError();
   if (err != 0 || n_split == 1) return err;
-  pair_ll_join_kernel<<<(unsigned)tiles, TPB, 0, st>>>(
-      (const float*)scratch, C, n_tiles, n_split, (float*)out);
+  pair_ll_join_kernel<<<dim3((unsigned)tiles, TC * TC / TPB), TPB, 0, st>>>(
+      (const float*)scratch, C, n_tiles, (int)tile_lo, n_split, (float*)out);
   return (int)cudaGetLastError();
 }

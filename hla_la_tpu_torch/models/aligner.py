@@ -208,9 +208,12 @@ class ReadAligner:
     def __init__(self, pkg: GraphPackage, cfg: RunConfig | None = None,
                  band: int | None = None, kmer_k: int = 20,
                  graph_fallback: bool = True, decoy=None, *,
-                 device: str | torch.device):
+                 device: str | torch.device, sharded=None):
         self.pkg = pkg
         self.device = resolve(device)
+        # a parallel.mesh.Mesh: every NW call is split over all its ranks
+        self.sharded = sharded
+        self._sharded_nw = None
         self.scoring = DEFAULT_SCORING
         self.cfg = cfg or RunConfig()
         self.band = 32 if band is None else band
@@ -298,8 +301,19 @@ class ReadAligner:
 
     def _run_nw(self, reads_arr, lens_arr, refs_arr):
         """The forward pass on self.device (NWRunner.run): numpy arrays
-        for the native backtrace, overwritten by the next call."""
-        return self._nw.run(reads_arr, lens_arr, refs_arr)
+        for the native backtrace, overwritten by the next call.  With a
+        mesh, the device-sharded forward over all its ranks as one "data"
+        axis (SURVEY §2.3), each rank's slice on that rank's device."""
+        if self.sharded is None:
+            return self._nw.run(reads_arr, lens_arr, refs_arr)
+        L = reads_arr.shape[1]
+        W = refs_arr.shape[1] - L
+        if self._sharded_nw is None or \
+                (self._sharded_nw.L, self._sharded_nw.W) != (L, W):
+            from ..parallel.mesh import ShardedNW
+            self._sharded_nw = ShardedNW(self.sharded.all_data(), L, W,
+                                         self.scoring, self.stats)
+        return self._sharded_nw(reads_arr, lens_arr, refs_arr)
 
     def _make_jobs(self, pair_idx: int, mate: int, read: FastqRead,
                    cands=None) -> list[_Job]:

@@ -20,8 +20,10 @@ Pipeline per locus (HLATyper::HLATypeInference, HLATyper.cpp:933-2810):
 The counterpart of ``hla_la_tpu/models/typer.py`` with one explicit
 ``device`` in place of its ``backend`` switch: steps 4 and 5 always take
 the dense one-hot products and the pair reduction on that device (the
-reference's sparse-delta host form of step 4 is not on this path), and loci
-are typed serially (no per-locus worker processes).
+reference's sparse-delta host form of step 4 is not on this path).  Loci are
+typed serially, or fanned out over worker processes that each run the same
+``_type_locus`` on that device (``type_all(n_workers=, worker_pool=)``); with
+a mesh (``sharded=``) the pair reduction is split over its ranks.
 """
 
 from __future__ import annotations
@@ -301,10 +303,13 @@ class LocusResult:
 class HLATyper:
     def __init__(self, pkg: GraphPackage, cfg: TyperConfig | None = None,
                  g_nomenclature_path: str | None = None, *,
-                 device: str | torch.device):
+                 device: str | torch.device, sharded=None):
         self.pkg = pkg
         self.cfg = cfg or TyperConfig()
         self.device = resolve(device)
+        self.sharded = sharded      # a parallel.mesh.Mesh or None
+        # K3 launches made by typing workers for this typer, by kernel
+        self.worker_launches = {"K3": 0}
         self.segment_files = pkg.segment_files()
         self.graph_genes = self._discover_genes()
         # gene-segment columns only, not the full 3M-entry map of a
@@ -421,8 +426,8 @@ class HLATyper:
                  raw_unpaired: list[FastqRead],
                  aligned_unpaired: list[GraphAlignment],
                  insert_mean: float, insert_sd: float,
-                 output_dir: str, long_reads_mode: str = ""
-                 ) -> list[LocusResult]:
+                 output_dir: str, long_reads_mode: str = "",
+                 n_workers: int = 1, worker_pool=None) -> list[LocusResult]:
         os.makedirs(output_dir, exist_ok=True)
         cfg = self.cfg.for_long_reads() if long_reads_mode else self.cfg
         long_reads = bool(long_reads_mode)
@@ -438,17 +443,27 @@ class HLATyper:
 
         results: list[LocusResult] = []
         hist_path = os.path.join(output_dir, "histogram_matchesPerRead.txt")
+        per_locus = None
+        if (n_workers > 1 or worker_pool is not None) and len(self.loci) > 1:
+            per_locus = self._type_loci_parallel(
+                raw_pairs, aligned_pairs, raw_unpaired, aligned_unpaired,
+                insert_mean, insert_sd, output_dir, cfg, long_reads,
+                kmer_counts, n_workers, worker_pool)
         self._async_out = _AsyncOutput()
         try:
             with open(hist_path, "w") as hist_fh:
                 hist_fh.write("Locus\tLevelValue\n")
                 for locus in self.loci:
-                    log_progress(f"HLATypeInference: locus {locus}")
-                    r = self._type_locus(locus, raw_pairs, aligned_pairs,
-                                         raw_unpaired, aligned_unpaired,
-                                         insert_mean, insert_sd, output_dir,
-                                         cfg, long_reads, kmer_counts,
-                                         hist_fh)
+                    if per_locus is not None:
+                        r, hist_text = per_locus[locus]
+                        hist_fh.write(hist_text)
+                    else:
+                        log_progress(f"HLATypeInference: locus {locus}")
+                        r = self._type_locus(locus, raw_pairs, aligned_pairs,
+                                             raw_unpaired, aligned_unpaired,
+                                             insert_mean, insert_sd,
+                                             output_dir, cfg, long_reads,
+                                             kmer_counts, hist_fh)
                     if r is not None:
                         results.append(r)
         finally:
@@ -544,6 +559,103 @@ class HLATyper:
                                          pr_f1 - pr_l2 - 1)
 
     # ------------------------------------------------------------- per locus
+    def _type_loci_parallel(self, raw_pairs, aligned_pairs, raw_unpaired,
+                            aligned_unpaired, insert_mean, insert_sd,
+                            output_dir, cfg, long_reads, kmer_counts,
+                            n_workers, worker_pool=None):
+        """Per-locus typing fan-out over worker processes (the reference
+        types loci serially; loci are independent given the alignments).
+        `worker_pool`: a live ParallelAligner whose warm workers (package
+        already in memory) are reused; without one, fresh workers are
+        spawned — worth it only when serial typing would take minutes.
+        Returns {locus: (LocusResult|None, hist_text)}, or None when the
+        fan-out is not worth it or cannot start (too few reads or loci, no
+        file-backed __main__): the caller then types serially.  A failure
+        INSIDE a worker (a CUDA error, a failed build or launch) is not
+        such a case: it propagates and ends the run."""
+        from .parallel_host import pack_aligned_pairs, spawn_safe
+        # per-worker fixed costs (HLATyper init, kmer-index IPC; plus a
+        # package reload for fresh workers) only amortise at WGS scale
+        # (~1M MHC reads / several loci) — below that serial typing wins
+        min_reads = getattr(self.cfg, "min_reads_for_typing_workers", 50_000)
+        min_loci = getattr(self.cfg, "min_loci_for_typing_workers", 4)
+        if len(aligned_pairs) + len(aligned_unpaired) < min_reads \
+                or len(self.loci) < min_loci:
+            return None
+        if worker_pool is None and not spawn_safe():
+            return None
+        import multiprocessing as mp
+        n = min(n_workers if worker_pool is None else worker_pool.n_workers,
+                len(self.loci))
+        chunks = [self.loci[i::n] for i in range(n)]
+        # ship only the alignments overlapping each chunk's gene ranges —
+        # at WGS scale most reads are outside any given locus, and the IPC
+        # of the full alignment set dominates otherwise
+        # spill the k-mer count index to disk and ship the PATH: its sorted
+        # code arrays cover every input read (hundreds of MB at WGS scale)
+        # and would otherwise be pickled into each worker's args
+        kc_arg = kmer_counts
+        kc_path = None
+        if kmer_counts is not None and len(kmer_counts.codes):
+            import tempfile
+            fd, kc_path = tempfile.mkstemp(suffix=".npz",
+                                           prefix="hla_kmercounts_")
+            os.close(fd)
+            with open(kc_path, "wb") as fh:
+                np.savez(fh, codes=kmer_counts.codes,
+                         counts=kmer_counts.counts, k=kmer_counts.k)
+            kc_arg = kc_path
+        # full-set histogram fractions: every OK pair's lines must appear
+        # for every locus, but workers only receive gene-range subsets
+        hist_w = (np.zeros(0), np.zeros(0))
+        if getattr(self, "_pair_quality", None) is not None:
+            ok_a, w1_a, w2_a = self._pair_quality
+            oki = np.nonzero(ok_a)[0]
+            hist_w = (w1_a[oki], w2_a[oki])
+        args = []
+        for chunk in chunks:
+            sel = self._subset_for_loci(chunk, raw_pairs, aligned_pairs,
+                                        raw_unpaired, aligned_unpaired)
+            (sub_raw_pairs, sub_aligned, sub_rawu, sub_unal) = sel
+            # packed input subsets are already SoA — ship the arrays as-is
+            packed = (sub_aligned.pack if hasattr(sub_aligned, "pack")
+                      else pack_aligned_pairs(sub_aligned))
+            # raw reads ship as THREE joined strings per side, not a tuple
+            # per read: pickling millions of small tuples/strings made the
+            # fan-out slower than serial at WGS scale
+            raw1 = _pack_reads(r1 for r1, _ in sub_raw_pairs)
+            raw2 = _pack_reads(r2 for _, r2 in sub_raw_pairs)
+            rawu = _pack_reads(sub_rawu)
+            unal = _pack_optional_chains(sub_unal)
+            args.append((self.pkg.dir, str(self.device), self.cfg, self.g_path,
+                         chunk, packed, raw1, raw2, rawu, unal,
+                         insert_mean, insert_sd, output_dir, cfg,
+                         long_reads, kc_arg, hist_w))
+        if worker_pool is None and self.device.type == "cuda":
+            # one build, here, before any worker asks for the library
+            from .. import _build
+            _build.library()
+        try:
+            if worker_pool is not None:
+                chunk_results = worker_pool.pool.map(_typing_worker, args)
+            else:
+                ctx = mp.get_context("spawn")
+                with ctx.Pool(n, initializer=_typing_worker_init) as pool:
+                    chunk_results = pool.map(_typing_worker, args)
+        finally:
+            if kc_path is not None and os.path.exists(kc_path):
+                os.unlink(kc_path)
+        out = {}
+        for res, launches in chunk_results:
+            self.worker_launches["K3"] += launches
+            for locus, r, hist_text in res:
+                out[locus] = (r, hist_text)
+        if set(out) != set(self.loci):
+            raise RuntimeError(
+                f"typing workers returned {sorted(out)}, expected "
+                f"{sorted(self.loci)}")
+        return out
+
     def _combined_exon_matrix(self, locus: str):
         """Combined exon allele matrix: returns (graph_levels [J],
         exon_index [J], exon_pos [J], {allele: combined string})
@@ -854,6 +966,51 @@ class HLATyper:
                     by_level[o.graph_level] = o
         return [by_level[lv] for lv in sorted(order)]
 
+    def _locus_level_range(self, locus) -> tuple[int, int] | None:
+        """Graph-level span of a locus's typed exon segments, from the
+        segment headers only (no allele matrix load)."""
+        lo, hi = None, None
+        for fn in self.graph_genes.get(locus, {}).values():
+            path = os.path.join(self.pkg.dir, "PRG", fn)
+            with open(path) as fh:
+                cols = fh.readline().split()[1:]
+            for c in cols:
+                lv = self.locus_to_level.get(c)
+                if lv is None:
+                    continue
+                lo = lv if lo is None else min(lo, lv)
+                hi = lv if hi is None else max(hi, lv)
+        if lo is None:
+            return None
+        return lo, hi
+
+    def _subset_for_loci(self, loci, raw_pairs, aligned_pairs, raw_unpaired,
+                         aligned_unpaired):
+        """Alignments/reads overlapping any of `loci`'s gene ranges
+        (requires _setup_pair_ranges to have run)."""
+        ranges = [r for r in (self._locus_level_range(l) for l in loci)
+                  if r is not None]
+        if not ranges or getattr(self, "_pair_ranges", None) is None:
+            return raw_pairs, aligned_pairs, raw_unpaired, aligned_unpaired
+        f1, l1, f2, l2, uf, ul = self._pair_ranges
+        n = len(aligned_pairs)
+        keep_p = np.zeros(n, dtype=bool)
+        nu = len(aligned_unpaired)
+        keep_u = np.zeros(nu, dtype=bool)
+        for lo, hi in ranges:
+            keep_p |= (((f1[:n] <= hi) & (l1[:n] >= lo) & (f1[:n] >= 0))
+                       | ((f2[:n] <= hi) & (l2[:n] >= lo) & (f2[:n] >= 0)))
+            if nu:
+                keep_u |= (uf[:nu] <= hi) & (ul[:nu] >= lo) & (uf[:nu] >= 0)
+        pi = np.nonzero(keep_p)[0]
+        ui = np.nonzero(keep_u)[0]
+        sub_aligned = (aligned_pairs.subset(pi)
+                       if hasattr(aligned_pairs, "subset")
+                       else [aligned_pairs[i] for i in pi])
+        return ([raw_pairs[i] for i in pi], sub_aligned,
+                [raw_unpaired[i] for i in ui],
+                [aligned_unpaired[i] for i in ui])
+
     def _collect_locus_obs(self, raw_pairs, aligned_pairs, raw_unpaired,
                            aligned_unpaired, ov, pq, levels, lv_min, lv_max,
                            cfg) -> _ObsSoA:
@@ -1059,9 +1216,11 @@ class HLATyper:
         # every quality-OK pair writes its histogram lines for this locus —
         # the reference emits them OUTSIDE the has-exon-positions check
         # (HLATyper.cpp:1426-1430), so pairs with no overlap with this
-        # locus's exons still appear.
-        hist = None
-        if pq is not None:
+        # locus's exons still appear.  In the per-locus worker fan-out the
+        # full-set fractions arrive via _hist_override (workers only hold
+        # the gene-range read subset).
+        hist = getattr(self, "_hist_override", None)
+        if hist is None and pq is not None:
             ok_a, w1_a, w2_a = pq
             oki = np.nonzero(ok_a)[0]
             hist = (w1_a[oki], w2_a[oki])
@@ -1160,7 +1319,8 @@ class HLATyper:
                         soa.pos[first])
 
         # ---- pair reduction ----------------------------------------------
-        pair_LL = pair_ll_reduction(LLmat, device=self.device)
+        pair_LL = pair_ll_reduction(LLmat, device=self.device,
+                                    sharded=self.sharded)
         iu = np.triu_indices(C)
         pair_vals = pair_LL[iu]                    # ordered (c1 <= c2)
         max_ll = float(pair_vals.max()) if len(pair_vals) else 0.0
@@ -1610,8 +1770,8 @@ class HLATyper:
     def _write_pileup(self, locus, soa: _ObsSoA, used_idx, exon_idx,
                       exon_pos, strand_freqs, read1_freqs, output_dir):
         """Build + write R1_pileup_<locus>.txt (HLATyper.cpp:1940-2010
-        layout).  When an _AsyncOutput is active (type_all), the
-        build+write runs on a background thread.  The three
+        layout).  When an _AsyncOutput is active (type_all / the typing
+        worker), the build+write runs on a background thread.  The three
         run-global tables the build reads (intern'd genotype/quality
         lists + the pos-str cache) keep growing on the caller thread for
         later loci, so the async path hands the thread SNAPSHOTS of the
@@ -1956,3 +2116,117 @@ def _chi2_p1(observed: list[float], expected: list[float]) -> float:
         stat += (o - e) ** 2 / e
     # survival function of chi2(1): erfc(sqrt(x/2))
     return math.erfc(math.sqrt(stat / 2.0))
+
+
+def _pack_reads(reads) -> tuple[int, str, str, str]:
+    """(n, names, seqs, quals) with newline-joined fields — one string per
+    field instead of one tuple per read (FASTQ/BAM names/sequences cannot
+    contain newlines)."""
+    names, seqs, quals = [], [], []
+    for r in reads:
+        names.append(r.name)
+        seqs.append(r.seq)
+        quals.append(r.qual)
+    return (len(names), "\n".join(names), "\n".join(seqs),
+            "\n".join(quals))
+
+
+def _unpack_reads(t) -> list:
+    from ..io.fastq import FastqRead
+    n, names, seqs, quals = t
+    if n == 0:
+        return []
+    return [FastqRead(*z) for z in zip(names.split("\n"), seqs.split("\n"),
+                                       quals.split("\n"))]
+
+
+def _pack_optional_chains(chains):
+    """(total, non-None indices, packed arrays) for a list that may hold
+    None entries (unpaired alignments)."""
+    from .parallel_host import pack_unpaired_chains
+    idx = [i for i, c in enumerate(chains) if c is not None]
+    return (len(chains), idx,
+            pack_unpaired_chains([chains[i] for i in idx]) if idx else None)
+
+
+def _unpack_optional_chains(t) -> list:
+    from .parallel_host import unpack_chains
+    total, idx, packed = t
+    out = [None] * total
+    if packed is not None:
+        for i, c in zip(idx, unpack_chains(packed)):
+            out[i] = c
+    return out
+
+
+def _typing_worker_init():
+    os.environ["HLA_LA_IN_WORKER"] = "1"
+    torch.set_num_threads(1)
+
+
+_KC_CACHE: dict[str, "KmerCountIndex"] = {}
+
+
+def _load_spilled_kmer_counts(path: str) -> "KmerCountIndex":
+    kc = _KC_CACHE.get(path)
+    if kc is None:
+        with np.load(path) as z:
+            kc = KmerCountIndex(z["codes"], z["counts"], int(z["k"]))
+        _KC_CACHE.clear()
+        _KC_CACHE[path] = kc
+    return kc
+
+
+def _typing_worker(args):
+    (pkg_dir, device, base_cfg, g_path, loci, packed, raw1, raw2, rawu,
+     packed_unal, insert_mean, insert_sd, output_dir, cfg, long_reads,
+     kmer_counts, hist_w) = args
+    import io
+
+    from ..graph.package import GraphPackage
+
+    # reuse the worker's already-loaded package when running inside the
+    # alignment worker pool (avoids a multi-GB package reload per worker at
+    # real-PRG scale)
+    if isinstance(kmer_counts, str):
+        # spilled index: load once per worker process (see the spill in
+        # _type_loci_parallel)
+        kmer_counts = _load_spilled_kmer_counts(kmer_counts)
+    from ..ops.cuda_pair import pair_ll_diff_cuda
+    from . import parallel_host as ph
+    launches_before = pair_ll_diff_cuda.launches
+    pkg = None
+    if ph._WORKER_ALIGNER is not None \
+            and ph._WORKER_ALIGNER.pkg.dir == pkg_dir:
+        pkg = ph._WORKER_ALIGNER.pkg
+    if pkg is None:
+        pkg = GraphPackage(pkg_dir)
+    typer = HLATyper(pkg, base_cfg,
+                     g_nomenclature_path=g_path, device=device)
+    # wrap, don't unpack: the worker's typing loop reads the SoA arrays
+    # directly and materialises objects only for locus-overlapping chains
+    from .parallel_host import PackedAlignedPairs
+    aligned_pairs = PackedAlignedPairs(packed)
+    raw_pairs = list(zip(_unpack_reads(raw1), _unpack_reads(raw2)))
+    raw_unpaired = _unpack_reads(rawu)
+    aligned_unpaired = _unpack_optional_chains(packed_unal)
+    typer._setup_pair_ranges(aligned_pairs, aligned_unpaired)
+    typer._pair_quality = (typer._compute_pair_quality(
+        aligned_pairs, insert_mean, insert_sd, cfg)
+        if aligned_pairs else None)
+    typer._hist_override = hist_w   # full-set fractions for the histogram
+    typer._async_out = _AsyncOutput()
+    out = []
+    try:
+        for locus in loci:
+            log_progress(f"HLATypeInference: locus {locus}")
+            fh = io.StringIO()
+            r = typer._type_locus(locus, raw_pairs, aligned_pairs,
+                                  raw_unpaired, aligned_unpaired,
+                                  insert_mean, insert_sd, output_dir, cfg,
+                                  long_reads, kmer_counts, fh)
+            out.append((locus, r, fh.getvalue()))
+    finally:
+        aout, typer._async_out = typer._async_out, None
+        aout.flush(raising=sys.exc_info()[0] is None)
+    return out, pair_ll_diff_cuda.launches - launches_before

@@ -212,17 +212,80 @@ def plain_chunk(C: int, R: int, chunk: int = 256) -> int:
     return min(chunk, max(R, 1), max(1, int(PLAIN_CELLS // max(C * C, 1))))
 
 
-def pair_ll_diff_plain(L: torch.Tensor, chunk: int = 256
+PAIR_TILE = 64      # edge of K3's output tiles (csrc/pair_ll.cu: TC)
+
+
+def pair_tiles(C: int) -> int:
+    """Length of K3's tile list: the PAIR_TILE-square tiles with c1 <= c2
+    of a C x C matrix, row-major over the upper triangle of tiles."""
+    n = -(-C // PAIR_TILE)
+    return n * (n + 1) // 2
+
+
+def _tile_rows(C: int, first: int, count: int):
+    """Tiles first .. first + count - 1 of the tile list as (ti, tj_lo,
+    tj_hi) runs, one per tile row the range touches."""
+    n = -(-C // PAIR_TILE)
+    t, ti = 0, 0
+    while ti < n and count > 0:
+        row_len = n - ti
+        if first < t + row_len:
+            a = max(first, t) - t
+            b = min(first + count, t + row_len) - t
+            if b > a:
+                yield ti, ti + a, ti + b - 1
+        t += row_len
+        ti += 1
+        if t >= first + count:
+            break
+
+
+def pair_ll_diff_plain(L: torch.Tensor, chunk: int = 256,
+                       tile_range: tuple[int, int] | None = None
                        ) -> tuple[torch.Tensor, int]:
     """Plain PyTorch difference term, the reference's XLA scan
     (``make_pair_ll_jax``) written out: zero-pad R to a chunk multiple and
-    sum [C, C, chunk] blocks.  Returns (acc [C, C] f32, Rpad)."""
+    sum [C, C, chunk] blocks.  Returns (acc [C, C] f32, Rpad).
+
+    With `tile_range` = (first, count), as K3's wrapper takes it: only the
+    cells of those tiles of the tile list (and their mirrors) are computed,
+    every other cell is zero, so the ranges of a partition of the list sum
+    to the whole list's matrix exactly."""
     C, R = L.shape
     chunk = plain_chunk(C, R, chunk)
     n_chunks = -(-R // chunk)
     Rpad = n_chunks * chunk
     Lp = torch.nn.functional.pad(L, (0, Rpad - R))
     acc = torch.zeros((C, C), dtype=L.dtype, device=L.device)
+    if tile_range is not None:
+        first, count = tile_range
+        if not (0 <= first and 0 <= count
+                and first + count <= pair_tiles(C)):
+            raise ValueError(f"tile range {tile_range} outside the "
+                             f"{pair_tiles(C)} tiles of C = {C}")
+        T = PAIR_TILE
+        for ti, tj_lo, tj_hi in _tile_rows(C, first, count):
+            r0, r1 = ti * T, min((ti + 1) * T, C)
+            c0, c1 = tj_lo * T, min((tj_hi + 1) * T, C)
+            part = torch.zeros((r1 - r0, c1 - c0), dtype=L.dtype,
+                               device=L.device)
+            for lo in range(0, Rpad, chunk):
+                a = Lp[r0:r1, lo:lo + chunk]
+                b = Lp[c0:c1, lo:lo + chunk]
+                d = (a[:, None, :] - b[None, :, :]).abs()
+                part = part + (0.5 * d
+                               + torch.log1p(torch.exp(-d))).sum(dim=2)
+            mirror = part
+            if tj_lo == ti:
+                # the diagonal tile holds both cells of a pair: keep its
+                # c1 <= c2 cells, and mirror those off the diagonal
+                k = r1 - r0
+                part[:, :k] = torch.triu(part[:, :k])
+                mirror = part.clone()
+                mirror[:, :k] = torch.triu(part[:, :k], 1)
+            acc[r0:r1, c0:c1] += part
+            acc[c0:c1, r0:r1] += mirror.T
+        return acc, Rpad
     for lo in range(0, Rpad, chunk):
         blk = Lp[:, lo:lo + chunk]
         d = (blk[:, None, :] - blk[None, :, :]).abs()
@@ -230,13 +293,18 @@ def pair_ll_diff_plain(L: torch.Tensor, chunk: int = 256
     return acc, Rpad
 
 
-def pair_ll_reduction(L: np.ndarray, device: str | torch.device
-                      ) -> np.ndarray:
+def pair_ll_reduction(L: np.ndarray, device: str | torch.device,
+                      sharded=None) -> np.ndarray:
     """[C, R] per-cluster read log-likelihoods -> [C, C] float64 pair
-    log-likelihoods (symmetric)."""
+    log-likelihoods (symmetric).  `sharded`: a parallel.mesh.Mesh; the
+    reduction is then split over its ranks (every rank calls this with the
+    same L and gets the same matrix)."""
     C, R = L.shape
     if C == 0 or R == 0:
         return np.zeros((C, C), dtype=np.float64)
+    if sharded is not None:
+        from ..parallel.mesh import pair_ll_reduction_sharded
+        return pair_ll_reduction_sharded(L, sharded)
     acc, Rpad = _pair_ll_diff(
         to_device(np.asarray(L, dtype=np.float32), resolve(device)))
     acc = acc.cpu().numpy().astype(np.float64)
@@ -247,7 +315,8 @@ def pair_ll_reduction(L: np.ndarray, device: str | torch.device
     return base + acc + LOG_HALF * Rpad
 
 
-def _pair_ll_diff(L: torch.Tensor) -> tuple[torch.Tensor, int]:
+def _pair_ll_diff(L: torch.Tensor, tile_range=None
+                  ) -> tuple[torch.Tensor, int]:
     if on_card(L):
-        return pair_ll_diff_cuda(L)
-    return pair_ll_diff_plain(L)
+        return pair_ll_diff_cuda(L, tile_range)
+    return pair_ll_diff_plain(L, tile_range=tile_range)

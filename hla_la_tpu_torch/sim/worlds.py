@@ -16,7 +16,14 @@ parameters.
   and a BAM of paired 100 bp reads from two planted haplotypes, for
   ``--action KIR``;
 - ``asm_world``: ``typing_world``'s graph package and an assembly of two
-  contigs cut from the two planted haplotypes, for ``--action ASM``.
+  contigs cut from the two planted haplotypes, for ``--action ASM``;
+- ``ambiguous_world``: ``typing_world`` at a coverage so low that a locus is
+  called with a Q1 well inside (0, 1): the world that makes the 1e-3 bar on
+  Q1/Q2 between two devices bind (``ambiguous_q1`` asserts the range);
+- ``decoy_world``: reads of the two planted haplotypes mixed with reads of
+  a mutated paralog of gene A that lives outside the PRG, and the decoy
+  genome FASTA that ``--decoyFasta`` takes (the recipe of the reference's
+  ``tests/test_decoy.py``).
 
   world = long_read_world("build/worlds")
   cli.main(["--action", "HLA", *world.cli_args(), "--graph", world.graph])
@@ -81,6 +88,20 @@ KIR_CONTIG = ("chr19", 58617616)
 KIR_REGION_START = 54000000
 KIR_SEED = 314159
 
+# the ambiguous world: 60 alleles per locus and half a read pair's worth of
+# coverage per haplotype, so that the second allele of locus A is called
+# with a Q1 near 0.24 (the other Q1 of the world stay near 1)
+AMBIGUOUS_WORLD = {"n_alleles": 60, "coverage": 0.5}
+AMBIGUOUS_Q1 = (0.05, 0.95)
+
+# the decoy world: gene A of haplotype 1, mutated at 4%, between two random
+# flanks on a contig of a decoy genome; reads at 10x from the paralog and
+# at 12x from each planted haplotype
+DECOY_BACKBONE = 2400
+DECOY_DIVERGENCE = 0.04
+DECOY_FLANK = 3000
+DECOY_SEED = 99
+
 # the assembly world: substitutions per contig, outside the exons
 ASM_SUBSTITUTIONS = 5
 ASM_SEED = 141421
@@ -95,6 +116,20 @@ class TypingWorld:
 
     def cli_args(self) -> list[str]:
         return ["--FASTQ1", self.fastq1, "--FASTQ2", self.fastq2]
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoyWorld:
+    graph: str                          # graph package directory
+    fastq1: str
+    fastq2: str
+    decoy_fasta: str                    # the genome that holds the paralog
+    truth: dict[str, list[str]]         # locus -> planted alleles
+    n_paralog_pairs: int                # pairs named "para..."
+
+    def cli_args(self) -> list[str]:
+        return ["--FASTQ1", self.fastq1, "--FASTQ2", self.fastq2,
+                "--decoyFasta", self.decoy_fasta]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,6 +243,85 @@ def typing_world(out_dir: str, n_alleles: int = IMGT_ALLELES,
         return truth, {"seed": IMGT_SEED, "backbone": backbone,
                        "alleles": n_alleles, "coverage": coverage,
                        "pairs": len(pairs)}
+
+    return _cached(root, make_world, build)
+
+
+def ambiguous_world(out_dir: str) -> TypingWorld:
+    """typing_world at AMBIGUOUS_WORLD's size: at least one allele is called
+    with a Q1 inside AMBIGUOUS_Q1 (hold a run to it with ambiguous_q1)."""
+    return typing_world(out_dir, **AMBIGUOUS_WORLD)
+
+
+def ambiguous_q1(bestguess_rows) -> list[float]:
+    """The Q1 values strictly inside AMBIGUOUS_Q1 among the rows of a
+    R1_bestguess.txt table (header included); raises when there is none,
+    so that the world cannot quietly become certain."""
+    lo, hi = AMBIGUOUS_Q1
+    q1 = [float(r[3]) for r in bestguess_rows[1:]]
+    inside = [q for q in q1 if lo < q < hi]
+    if not inside:
+        raise AssertionError(f"no Q1 inside ({lo}, {hi}): {q1}")
+    return inside
+
+
+def decoy_world(out_dir: str) -> DecoyWorld:
+    """Build (or reuse from `out_dir`) the paralog world: a 5-haplotype
+    panel, a decoy genome with a DECOY_DIVERGENCE-mutated copy of
+    haplotype 1's gene A, and paired 100 bp reads of haplotypes 1 and 2
+    followed by those of the paralog ("para..." names)."""
+    root = os.path.join(out_dir, f"decoy_b{DECOY_BACKBONE}")
+
+    def make_world(truth):
+        return DecoyWorld(graph=os.path.join(root, "pkg"),
+                          fastq1=os.path.join(root, "R_1.fq"),
+                          fastq2=os.path.join(root, "R_2.fq"),
+                          decoy_fasta=os.path.join(root, "decoy.fa"),
+                          truth=truth and truth["alleles"],
+                          n_paralog_pairs=truth and truth["paralog_pairs"])
+
+    def build(world):
+        rng = np.random.default_rng(DECOY_SEED)
+        sim = simulate_prg_package(rng, backbone_length=DECOY_BACKBONE,
+                                   n_haplotypes=5, snp_rate=0.012)
+        sim.write_package(world.graph)
+        hap1, lv1 = sim.linearized(1)
+        gene_cols = [i for i, n in enumerate(sim.column_names)
+                     if "_gene_A_" in n]
+        in_gene = (lv1 >= min(gene_cols)) & (lv1 <= max(gene_cols))
+        para = [b for b, keep in zip(hap1, in_gene) if keep]
+        for i in range(len(para)):
+            if rng.random() < DECOY_DIVERGENCE:
+                para[i] = "ACGT"[("ACGT".index(para[i])
+                                  + int(rng.integers(1, 4))) % 4]
+
+        def random_seq(n):
+            return "".join(rng.choice(list("ACGT"), n))
+
+        flank = random_seq(DECOY_FLANK)
+        contig = flank + "".join(para) + random_seq(DECOY_FLANK)
+        write_fasta(world.decoy_fasta, {"chr11_paralog": contig,
+                                        "chr2_random": random_seq(5000)})
+        rs = ReadSimulator(rng, read_length=100, fragment_mean=300,
+                           fragment_sd=25, with_error=True)
+        para_pairs = [
+            p for p in rs.simulate_pairs_from_string(
+                contig, np.full(len(contig), -1, dtype=np.int64), 10.0,
+                name_prefix="para")
+            if len(flank) - 200 < p.r1.start_pos < len(flank) + len(para)]
+        pairs = []
+        for h in TRUTH_HAPS:
+            seq, levels = sim.linearized(h)
+            pairs += rs.simulate_pairs_from_string(seq, levels, 12.0,
+                                                   name_prefix=f"true{h}")
+        pairs += para_pairs
+        write_fastq(world.fastq1, [p.r1.to_fastq() for p in pairs])
+        write_fastq(world.fastq2, [p.r2.to_fastq() for p in pairs])
+        alleles = {locus: [list(sim.gene_alleles[locus])[h]
+                           for h in TRUTH_HAPS] for locus in sim.gene_alleles}
+        return ({"alleles": alleles, "paralog_pairs": len(para_pairs)},
+                {"seed": DECOY_SEED, "backbone": DECOY_BACKBONE,
+                 "divergence": DECOY_DIVERGENCE, "pairs": len(pairs)})
 
     return _cached(root, make_world, build)
 

@@ -49,12 +49,13 @@ def _imports(path: Path) -> list[str]:
 
 
 @pytest.mark.parametrize("rel",
-                         PORT_FILES + ["chip_smoke.py", "bench_nw.py"])
+                         PORT_FILES + ["chip_smoke.py", "bench_nw.py",
+                                       "bench_workers.py"])
 def test_file_imports_neither_jax_nor_the_jax_package(rel):
     roots = {n.split(".")[0] for n in _imports(REPO / rel)}
     assert not roots & FORBIDDEN, (rel, roots & FORBIDDEN)
     if rel in PORT_FILES:   # the package stands without the root's scripts
-        assert not roots & {"chip_smoke", "bench_nw"}, rel
+        assert not roots & {"chip_smoke", "bench_nw", "bench_workers"}, rel
     text = (REPO / rel).read_text()
     assert "import_module" not in text and "__import__" not in text, rel
 
@@ -121,6 +122,15 @@ _BLOCKED_SLICE = textwrap.dedent("""
         assert main(common + ["--FASTQ1", td + "/R_1.fq", "--FASTQ2",
                               td + "/R_2.fq", "--outputDirectory",
                               td + "/cli_fq"]) == 0
+        # align shards and their merge (parallel_host's packers)
+        for host in ("0", "1"):
+            assert main(common + ["--FASTQ1", td + "/R_1.fq", "--FASTQ2",
+                                  td + "/R_2.fq", "--outputDirectory",
+                                  td + "/host" + host, "--nHosts", "2",
+                                  "--hostIdx", host, "--shardDir",
+                                  td + "/shards"]) == 0
+        assert main(common + ["--mergeShards", td + "/shards",
+                              "--outputDirectory", td + "/cli_merged"]) == 0
         with open(os.path.join(pkg.dir, "knownReferences", "fake.txt"),
                   "w") as fh:
             fh.write("contigID\\tcontigLength\\tExtractCompleteContig\\t"
@@ -162,7 +172,7 @@ _BLOCKED_SLICE = textwrap.dedent("""
         with open(td + "/asm/summary.txt") as fh:
             asm_rows = fh.read().splitlines()[1:]
         tables = []
-        for d in ("cli_fq", "cli_bam"):
+        for d in ("cli_fq", "cli_bam", "cli_merged"):
             with open(os.path.join(td, d, "hla", "R1_bestguess.txt")) as fh:
                 tables.append(fh.read())
     assert res.results and res.n_pairs_aligned > 0
@@ -170,6 +180,7 @@ _BLOCKED_SLICE = textwrap.dedent("""
     calls = [[line.split("\\t")[:3] for line in t.splitlines()]
              for t in tables]
     assert calls[0] == calls[1] and len(calls[0]) > 2
+    assert tables[0] == tables[2]
     assert kir_call == ["ALT0", "ALT2"], kir_call
     assert len(asm_rows) == 2 and all(
         r.split("\\t")[4] == "0" for r in asm_rows), asm_rows
@@ -182,9 +193,9 @@ _BLOCKED_SLICE = textwrap.dedent("""
 
 
 def test_cpu_slice_runs_with_jax_blocked():
-    """Short reads, long reads, the CLI on FASTQ and on a BAM, and
-    --action KIR and --action ASM, with jax and the JAX package both
-    blocked."""
+    """Short reads, long reads, the CLI on FASTQ, on a BAM and through
+    align shards and their merge, and --action KIR and --action ASM, with
+    jax and the JAX package both blocked."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_SLICE], cwd=REPO,
@@ -323,13 +334,29 @@ REWRITTEN_UNITS = {
         "ReadAligner.__init__", "ReadAligner._run_nw",
         "ReadAligner._jobs_to_alignments", "ReadAligner._align_jobs_arrays",
         "ReadAligner._align_jobs_soa", "ReadAligner._align_core_raw"},
+    # type_all is the reference's text again (n_workers, worker_pool); the
+    # fan-out differs where a worker's failure must end the run, where the
+    # device goes to the workers, where their K3 launches come back, and
+    # where unpaired chains are packed without their quality caches
     "models/typer": {
-        "HLATyper.__init__", "HLATyper.type_all", "HLATyper._type_locus",
+        "HLATyper.__init__", "HLATyper._type_locus",
         "HLATyper._setup_pair_ranges", "HLATyper._collect_locus_obs",
         "HLATyper._column_qc", "HLATyper._write_pileup",
-        "HLATyper._write_summary_statistics", "KmerCountIndex.build"},
-    "models/pipeline": {"_align_all", "_write_reads_per_level",
-                        "run_hla_typing"},
+        "HLATyper._write_summary_statistics", "KmerCountIndex.build",
+        "HLATyper._type_loci_parallel", "_typing_worker",
+        "_typing_worker_init", "_pack_optional_chains"},
+    # the device and mesh seams; _align_all, _shard_path and
+    # _write_reads_per_level are the reference's text
+    "models/pipeline": {"run_hla_typing", "_type_and_write", "align_shard",
+                        "merge_shards_and_type"},
+    # the packers and PackedAlignedPairs are the reference's text; the
+    # workers build the port's aligner on a device, take their share of the
+    # pointer budget and send their counters back; spawn_safe also passes
+    # a main module that has no file to re-run
+    "models/parallel_host": {
+        "_init_worker", "_align_chunk", "_align_unpaired_chunk",
+        "pack_reads", "spawn_safe", "ParallelAligner.__init__",
+        "ParallelAligner.align_pairs", "ParallelAligner.align_unpaired"},
     # the device seam and the batched pass over all reads' NW jobs; the
     # backtrace's consumer _score_ops, the gene assignment and the result
     # record are the reference's text
@@ -384,7 +411,13 @@ def test_one_aligner_one_typer_one_type_locus():
     assert holders == [PORT / "models" / "typer.py"]
     assert (PORT / "models" / "typer.py").read_text().count(
         "def _type_locus(") == 1
-    assert not hasattr(HLATyper, "_type_loci_parallel")
+    # the typing workers call that one _type_locus on a typer of their own
+    from hla_la_tpu_torch.models import typer as port_typer
+    import inspect
+    assert "typer._type_locus(" in inspect.getsource(
+        port_typer._typing_worker)
+    assert "_type_locus" not in inspect.getsource(
+        HLATyper._type_loci_parallel).replace("_typing_worker", "")
 
 
 def test_resolve_cuda_raises_without_a_card(monkeypatch):
@@ -527,7 +560,8 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
 DEVICE_PATH_FILES = ["_build.py", "device.py", "cli.py", "profile_e2e.py",
                      "ops/banded_nw.py", "ops/pair_ll.py", "ops/cuda_nw.py",
                      "ops/cuda_nw_long.py", "ops/cuda_pair.py",
-                     "models/pipeline.py", "models/linear_alts.py"]
+                     "models/pipeline.py", "models/linear_alts.py",
+                     "models/parallel_host.py", "parallel/mesh.py"]
 DEVICE_CALLS = {"banded_nw_forward_torch", "banded_nw_cuda",
                 "banded_nw_long_cuda", "pair_ll_diff_cuda",
                 "pair_ll_reduction", "cluster_read_ll", "_run_nw", "_forward",
@@ -535,7 +569,11 @@ DEVICE_CALLS = {"banded_nw_forward_torch", "banded_nw_cuda",
                 "run_hla_typing", "run_jobs", "scores", "NWRunner",
                 "_read_ll_rows", "_score_jobs", "haplotype_likelihoods",
                 "type_diploid", "type_diploid_paired", "_exon_distances",
-                "_verify_located_candidate", "type_contigs"}
+                "_verify_located_candidate", "type_contigs",
+                "align_shard", "merge_shards_and_type", "_type_and_write",
+                "_type_loci_parallel", "_typing_worker", "ParallelAligner",
+                "ShardedNW", "pair_ll_reduction_sharded",
+                "sharded_typing_step", "sharded_align_step", "full_step"}
 # KmerIndex.build makes the host's k-mer index; it is no kernel build
 HOST_INDEX_CLASSES = {"KmerIndex"}
 

@@ -481,10 +481,13 @@ def _pp_table(path):
     return {r[0]: tuple(float(x) for x in r[1:]) for r in rows[1:]}
 
 
-def _assert_runs_match(port_dir, ref_dir):
+def _assert_runs_match(port_dir, ref_dir, bestguess_bytes=True):
     """Calls equal and Q within 1e-6; every file byte-identical except the
     pair-posterior dumps, held value by value: P within 1e-6, LL within the
-    pair reduction's rtol 1e-6 / atol 1e-2, mismatches equal."""
+    pair reduction's rtol 1e-6 / atol 1e-2, mismatches equal.
+    bestguess_bytes=False (a world with a Q that is neither 0 nor 1, whose
+    last printed digits follow the float32 pair sums): the bestguess table
+    is held field by field only."""
     names = _tree(ref_dir)
     assert _tree(port_dir) == names and len(names) >= 10
     with open(os.path.join(port_dir, "hla", "R1_bestguess.txt")) as fh:
@@ -507,7 +510,7 @@ def _assert_runs_match(port_dir, ref_dir):
                 assert abs(g[key][0] - p) <= 1e-6, (name, key)
                 assert abs(g[key][1] - ll) <= 1e-2 + 1e-6 * abs(ll)
                 assert g[key][2] == mm, (name, key)
-        else:
+        elif bestguess_bytes or not name.endswith("R1_bestguess.txt"):
             assert _read(os.path.join(port_dir, name)) == \
                 _read(os.path.join(ref_dir, name)), name
 

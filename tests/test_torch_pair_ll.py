@@ -12,9 +12,11 @@ from hla_la_tpu.ops.pair_ll import (LOG_HALF, cluster_onehot,
                                     pair_ll_reduction as ref_pair_ll_reduction,
                                     pair_ll_reduction_numpy)
 from hla_la_tpu.ops.pallas_pair import pair_ll_reduction_pallas
-from hla_la_tpu_torch.ops.pair_ll import (PLAIN_CELLS, cluster_read_ll,
+from hla_la_tpu_torch.ops.pair_ll import (PAIR_TILE, PLAIN_CELLS,
+                                          cluster_read_ll,
                                           pair_ll_diff_plain,
-                                          pair_ll_reduction, plain_chunk)
+                                          pair_ll_reduction, pair_tiles,
+                                          plain_chunk)
 
 torch.set_num_threads(1)
 
@@ -119,3 +121,34 @@ def test_cluster_read_ll_matches_jax_random():
     ll_j, mm_j = ref_cluster_read_ll(onehot, contrib, mism, backend="jax")
     np.testing.assert_allclose(ll, ll_j, rtol=1e-5, atol=1e-4)
     np.testing.assert_array_equal(mm, mm_j)       # small integer sums
+
+
+@pytest.mark.parametrize("C,R", [(13, 101), (150, 300), (200, 77)])
+def test_plain_tile_ranges_sum_to_the_whole_exactly(C, R):
+    """The plain version with K3's tile-range argument: the ranges that 2,
+    3 and 4 model ranks take (one of them possibly empty) sum to the whole
+    tile list's matrix bit for bit, which is the matrix of the call without
+    a range; each range writes only its tiles and their mirrors."""
+    L = torch.from_numpy(np.random.default_rng(C).normal(
+        -30, 6, (C, R)).astype(np.float32))
+    n = pair_tiles(C)
+    assert n == (-(-C // PAIR_TILE)) * (-(-C // PAIR_TILE) + 1) // 2
+    whole, rpad = pair_ll_diff_plain(L, tile_range=(0, n))
+    assert torch.equal(whole, pair_ll_diff_plain(L)[0])
+    assert torch.equal(whole, whole.T)
+    for ranks in (2, 3, 4):
+        total = torch.zeros_like(whole)
+        touched = torch.zeros_like(whole)
+        for j in range(ranks):
+            lo, hi = n * j // ranks, n * (j + 1) // ranks
+            part, rp = pair_ll_diff_plain(L, tile_range=(lo, hi - lo))
+            assert rp == rpad
+            total += part
+            touched += (part != 0).float()
+        assert torch.equal(total, whole)
+        assert touched.max() == 1       # no cell in two ranges
+    empty, _ = pair_ll_diff_plain(L, tile_range=(n, 0))
+    assert not empty.any()
+    for bad in ((-1, 1), (0, n + 1), (n, 1)):
+        with pytest.raises(ValueError, match="tile range"):
+            pair_ll_diff_plain(L, tile_range=bad)
