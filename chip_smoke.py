@@ -4,13 +4,17 @@
 
 Phases, each ending in torch.cuda.synchronize(); any failure exits non-zero
 and no result line is printed.  The three full-size worlds are built in
-processes of their own from the start, and (g) runs before (e), while the
-IMGT-scale world is still being built:
+processes of their own from the start (with the second sample of (r); the
+first sample's BAM once the IMGT-scale world is there), and (g), (f), (i)
+and (t) run before (e), while the IMGT-scale world is still being built;
+(r) and (s) run after (m):
 
   (a) toolchain: torch, CUDA, nvcc, and the card's name and power limit;
   (b) build: compile the kernels from hla_la_tpu_torch/csrc with nvcc;
   (c) K1, the banded NW forward, against its plain PyTorch version on the
-      card, bit-identical on live rows and across reruns, at
+      card, bit-identical on live rows and across reruns, through the GPU
+      probe ``hla_la_tpu_torch.gpu_check.run``: first its own random ACGT
+      jobs at the main path's shape, with its HEALTHY/DEGRADED verdict, then
       B x L x W = 65,536 x 101 x 32 (the short-read main path's shape),
       4,096 x 101 x 32 (also held against the CPU), 4,096 x 77 x 31 (a band
       that is not a multiple of the kernel's four cells per lane) and
@@ -104,10 +108,29 @@ IMGT-scale world is still being built:
       rank.  One card cannot show traffic BETWEEN cards: that is not
       measured here.
 
+  (r) ``--action validate`` on a cohort of two IMGT-scale samples in one
+      process (``sim.cohort_world``: S1 is the world of (e) read from a BAM,
+      S2 reads of haplotypes 3 and 4 of the same package; the truth table
+      names one wrong allele of S2 at locus B): "cohort accuracy: 87.50%",
+      one discordant call whose pileup analysis lists columns, S1's calls
+      those of (e), every NW job of each sample on the card, K1 and K3
+      launched for each (S1 as often as in (e)), and the page-locked bytes
+      of the process not grown from S1 to S2; per sample its wall, align s
+      and type s;
+  (s) ``--action remapAndReduce`` on S1's BAM: at least 90% of the pairs
+      written, coordinate-sorted on the one PRG contig inside its levels,
+      every NW job on the card, K1 launched;
+  (t) every action the port gained with (r) and (s), on the small world
+      of (f) and its cohort, and ``--extractExonkMerCounts 1``, cuda
+      against the CPU: the same printed lines (but testPRGMapping's rate)
+      and files (BAMs as records, pair dumps and bestguess tables with Q
+      within 1e-3, the rest byte for byte); the five aligning self-tests
+      print OK on cuda and launch K1.
+
 The last two lines are the card's name and power limit, and
 {"ok": true, "device": {...}}; the line before them is the kernels' JSON
-record, one entry per kernel and main path (K1 runs on four, K2 on two, K3
-on five), with the
+record, one entry per kernel and main path (K1 runs on six, K2 on two, K3
+on six), with the
 launches of that path's run and the kernel's time beside its bound: the
 larger of its bytes (inputs read once, outputs written once) over the card's
 memory rate and its operations over the card's peak rate for their type.
@@ -173,22 +196,42 @@ POSTERIOR_MIN, R2G_MIN = 0.9, 0.9       # the KIR self-test's bars
 SMALL_KIR_WORLD = {"length": 12000, "coverage": 10.0}
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 _WORLD_BUILDS: dict = {}        # simulator's name -> the process making it
 
 
-def start_world_builds() -> None:
-    """Build the three full-size worlds into the cache under WORLD_DIR, each
-    in a process of its own, while the kernels are built and held against
-    their plain versions: the simulators are host Python and take minutes."""
-    code = ("import sys; from hla_la_tpu_torch import sim; "
-            "getattr(sim, sys.argv[1])(sys.argv[2])")
-    for name in ("typing_world", "long_read_world", "kir_world"):
+def start_world_builds(names=("typing_world", "long_read_world",
+                              "kir_world", "second_sample"),
+                       code="getattr(sim, sys.argv[1])(sys.argv[2])"
+                       ) -> None:
+    """Build the full-size worlds of simulators `names` into the cache
+    under WORLD_DIR, each in a process of its own, while the kernels are
+    built and held against their plain versions: the simulators are host
+    Python and take minutes.  `code` builds world `sys.argv[1]` in
+    directory `sys.argv[2]`."""
+    for name in names:
         _WORLD_BUILDS[name] = subprocess.Popen(
-            [sys.executable, "-c", code, name, WORLD_DIR], cwd=ROOT)
+            [sys.executable, "-c", "import sys; from hla_la_tpu_torch "
+             "import sim; " + code, name, WORLD_DIR], cwd=ROOT)
+
+
+def start_bam_build() -> None:
+    """S1's BAM of the cohort of (r): the IMGT-scale world's reads, written
+    in a process of its own once that world is built."""
+    start_world_builds(("world_bam",),
+                       "sim.world_bam(sim.typing_world(sys.argv[2]))")
+
+
+def wait_build(name: str) -> None:
+    proc = _WORLD_BUILDS.pop(name, None)
+    if proc is not None and proc.wait() != 0:
+        fail(f"building {name} failed (exit code {proc.returncode})")
 
 
 def built_world(name: str):
@@ -196,9 +239,7 @@ def built_world(name: str):
     build process (if one was started) has ended."""
     from hla_la_tpu_torch import sim
     t0 = time.perf_counter()
-    proc = _WORLD_BUILDS.pop(name, None)
-    if proc is not None and proc.wait() != 0:
-        fail(f"building {name} failed (exit code {proc.returncode})")
+    wait_build(name)
     world = getattr(sim, name)(WORLD_DIR)
     print(f"{name} ready after a further {time.perf_counter() - t0:.1f} s")
     return world
@@ -223,18 +264,8 @@ def sync():
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` launches (CUDA events, after
-    one warm-up call)."""
-    import torch
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from hla_la_tpu_torch.gpu_check import cuda_ms as probe_ms
+    return probe_ms(fn, reps)
 
 
 def sm_clocks_mhz() -> tuple[float, float]:
@@ -383,57 +414,33 @@ def hold_nw(kernel: str, shape: str, got, others: dict) -> tuple:
     `others` on the live rows (score > -1e29 in the first); returns (live
     rows, max abs score error against the first)."""
     import numpy as np
+    from hla_la_tpu_torch.gpu_check import mismatch
+    why = mismatch(got, others)
+    if why is not None:
+        fail(f"{kernel} at {shape}: {why}")
     first = next(iter(others.values()))
     live = first[0] > -1e29
-    names = ("score", "end_k", "end_state", "pointers")
-    for tag, other in others.items():
-        for name, a, b in zip(names, got, other):
-            if not np.array_equal(a[live], b[live]):
-                bad = np.nonzero((a[live] != b[live]).reshape(
-                    int(live.sum()), -1).any(axis=1))[0]
-                fail(f"{kernel} vs {tag} at {shape}: {name} differs on "
-                     f"{len(bad)} live rows (first {bad[:5].tolist()})")
     return int(live.sum()), float(np.abs(got[0][live] - first[0][live]).max())
 
 
 def check_nw(B: int, L: int, W: int, record: dict | None,
              make_world=nw_world) -> None:
     """K1 against the plain version on the card (and, at NW_CPU, on the
-    CPU) on make_world's jobs; the times go into `record` if one is
-    given."""
-    import numpy as np
-    import torch
-    from hla_la_tpu_torch.ops.banded_nw import DEFAULT_SCORING as sc
-    from hla_la_tpu_torch.ops.banded_nw import banded_nw_plain
-    from hla_la_tpu_torch.ops.cuda_nw import banded_nw_cuda
+    CPU) on make_world's jobs, through the GPU probe
+    (``hla_la_tpu_torch.gpu_check.run``); the times go into `record` if one
+    is given."""
+    from hla_la_tpu_torch import gpu_check
 
-    reads, lens, refs = make_world(np.random.default_rng(B + L + W), B, L, W)
-    host = [torch.from_numpy(a) for a in (reads, lens, refs)]
-    args = tuple(t.cuda() for t in host) + (sc,)
-    got = [t.cpu().numpy() for t in banded_nw_cuda(*args)]
-    sync()
-    others = {"plain on the card":
-              [t.cpu().numpy() for t in banded_nw_plain(*args)]}
-    sync()
-    if (B, L, W) == NW_CPU:
-        others["plain on the CPU"] = [t.numpy() for t in
-                                      banded_nw_plain(*host, sc)]
-    shape = f"B={B} L={L} W={W}"
-    n_live, err = hold_nw("K1", shape, got, others)
-    again = [t.cpu().numpy() for t in banded_nw_cuda(*args)]
-    if not all(np.array_equal(a, b) for a, b in zip(got, again)):
-        fail(f"K1 reruns at {shape} are not bit-identical")
-    ms = cuda_ms(lambda: banded_nw_cuda(*args), reps=10)
-    plain_ms = cuda_ms(lambda: banded_nw_plain(*args), reps=1)
-    gcells = B * L * W / (ms * 1e-3) / 1e9
+    stats = {}
+    if gpu_check.run(L, W, B, seed=B + L + W, stats=stats, world=make_world,
+                     cpu=(B, L, W) == NW_CPU) != 0:
+        fail(f"K1 at B={B} L={L} W={W}: {stats['why']}")
     bound = nw_bound(B, L, W)
-    print(f"K1 {shape}: bit-identical to the {' and '.join(others)} on "
-          f"{n_live}/{B} live rows, and across reruns; kernel {ms:.4f} ms "
-          f"({gcells:.2f} Gcells/s, {100 * bound['bound_ms'] / ms:.1f}% of "
-          f"the {bound['bound_by']} bound {bound['bound_ms']:.4f} ms), plain "
-          f"{plain_ms:.4f} ms")
+    print(f"  {100 * bound['bound_ms'] / stats['ms']:.1f}% of the "
+          f"{bound['bound_by']} bound {bound['bound_ms']:.4f} ms")
     if record is not None:
-        record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound)
+        record.update(max_abs_err=stats["max_abs_err"], ms=stats["ms"],
+                      plain_ms=stats["plain_ms"], **bound)
 
 
 def timed(fn):
@@ -708,42 +715,18 @@ def run_port(device: str, world, out_dir: str, extra=()) -> dict:
 
 
 def run_action(action: str, device: str, world, out_dir: str) -> dict:
-    """Run `action` (KIR or ASM) of the port's CLI on `world` and `device`;
-    the kernels' launch counters are zeroed just before the run and read
-    just after it.  Every NW job the typer made must have run on
+    """Run `action` (KIR or ASM) of the port's CLI on `world` and `device`
+    through run_cli.  Every NW job the typer made must have run on
     `device`."""
-    from hla_la_tpu_torch.cli import main as port_main
-    from hla_la_tpu_torch.ops.cuda_nw import banded_nw_cuda
-    from hla_la_tpu_torch.ops.cuda_nw_long import banded_nw_long_cuda
-    from hla_la_tpu_torch.ops.cuda_pair import pair_ll_diff_cuda
-
     shutil.rmtree(out_dir, ignore_errors=True)
     argv = ["--action", action, *world.cli_args(), "--sampleID", "S1",
-            "--outputDirectory", out_dir, "--device", device]
+            "--outputDirectory", out_dir]
     if action == "ASM":
         argv += ["--graph", world.graph]
-    log, out = io.StringIO(), io.StringIO()
-    kernels = {"K1": banded_nw_cuda, "K2": banded_nw_long_cuda,
-               "K3": pair_ll_diff_cuda}
-    for fn in kernels.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    with contextlib.redirect_stderr(_Tee(sys.stderr, log)), \
-            contextlib.redirect_stdout(_Tee(sys.stdout, out)):
-        rc = port_main(argv)
-    if device == "cuda":
-        sync()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    if rc != 0:
-        fail(f"--action {action} on {device} failed (rc {rc})")
-    m_jobs = re.search(r"n_chain_extensions: (\d+)", log.getvalue())
-    m_dev = re.search(rf"nw_jobs_on_{device}: (\d+)", log.getvalue())
-    if not (m_jobs and m_dev and int(m_jobs.group(1)) > 0
-            and m_dev.group(1) == m_jobs.group(1)):
-        fail(f"--action {action}: not every NW job ran on {device}")
-    return {"dir": out_dir, "launches": launches, "wall_s": wall,
-            "nw_jobs": int(m_jobs.group(1)), "stdout": out.getvalue()}
+    res = run_cli(argv, device, f"--action {action}")
+    jobs, = all_jobs_on(device, res["log"], 1, f"--action {action}")
+    return {"dir": out_dir, "launches": res["launches"],
+            "wall_s": res["wall_s"], "nw_jobs": jobs}
 
 
 def kir_outputs(res: dict) -> tuple[list[str], float, dict]:
@@ -908,19 +891,7 @@ def check_same_run(got: dict, want: dict) -> float:
              for r in (got, want)]
     if track[0] != track[1]:
         fail("coverage tracks (reads_per_level.txt) differ")
-    a, b = got["bestguess"], want["bestguess"]
-    if len(a) != len(b) or a[0] != b[0]:
-        fail("bestguess tables differ in shape")
-    q_err = 0.0
-    for ra, rb in zip(a[1:], b[1:]):
-        for i, (x, y) in enumerate(zip(ra, rb)):
-            if i in (3, 4):
-                q_err = max(q_err, abs(float(x) - float(y)))
-            elif x != y:
-                fail(f"bestguess column {a[0][i]} differs: {x} vs {y}")
-    if q_err > Q_TOL:
-        fail(f"Q1/Q2 differ by {q_err:.3g} > {Q_TOL}")
-    return q_err
+    return same_calls(got["bestguess"], want["bestguess"], "bestguess")
 
 
 def kernel_records() -> dict:
@@ -936,6 +907,8 @@ def kernel_records() -> dict:
     pair = {"name": "pair_ll_diff", "path": short, "route": "cuda",
             "source": "hla_la_tpu_torch/csrc/pair_ll.cu",
             "replaces": "hla_la_tpu/ops/pallas_pair.py:85"}     # and :138
+    cohort = "a cohort of two samples (--action validate), phase (r)"
+    remap = "--action remapAndReduce, phase (s)"
     workers = "short reads in 4 worker processes, phase (p)"
     ranks = "short reads on 4 ranks (--sharded 4), phase (q)"
     return {"nw": nw, "pair": pair, "nw_long": nw_long,
@@ -945,12 +918,15 @@ def kernel_records() -> dict:
             "nw_workers": {**nw, "path": workers},
             "pair_workers": {**pair, "path": workers},
             "nw_sharded": {**nw, "path": ranks},
-            "pair_sharded": {**pair, "path": ranks}}
+            "pair_sharded": {**pair, "path": ranks},
+            "nw_cohort": {**nw, "path": cohort},
+            "pair_cohort": {**pair, "path": cohort},
+            "nw_remap": {**nw, "path": remap}}
 
 
 def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> dict:
-    """Phases (c)-(i): the kernels at --action HLA's shapes and its two
-    main paths.  Returns the one-process cuda runs that later phases hold
+    """Phases (c)-(i) and (t): the kernels at --action HLA's shapes, its
+    two main paths, and every action new to the port on a small world.  Returns the one-process cuda runs that later phases hold
     their many-process runs against: {"imgt": (world, run), "small": ...}."""
     from hla_la_tpu_torch.models.aligner import jobs_per_call
     from hla_la_tpu_torch.sim import (LONG_READ_LENGTH, long_read_world,
@@ -958,7 +934,11 @@ def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> dict:
 
     # (g) runs before (e): its plain versions' row loops take a minute of
     # the time the IMGT-scale world needs to be built
-    phase("(c) K1 banded NW vs plain")
+    phase("(c) K1 banded NW vs plain, through the GPU probe")
+    from hla_la_tpu_torch import gpu_check
+    probe = {}
+    if gpu_check.run(stats=probe) != 0:
+        fail(f"the GPU probe: {probe['why']}")
     for shape in NW_SHAPES:
         check_nw(*shape, nw if shape == NW_SHAPES[0] else None)
     sync()
@@ -975,8 +955,25 @@ def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> dict:
     check_nw_long(*path_shape, nw_long)     # the shape (h) launches
     sync()
 
+    # (f), (i) and (t) need small worlds only: they run while the
+    # IMGT-scale world is still being built
+    phase("(f) small world: the port's CLI on cuda vs on the CPU")
+    small = typing_world(WORLD_DIR, **SMALL_WORLD)
+    one_process = {"small": (small, compare_devices(small, "small")["cuda"])}
+    sync()
+
+    phase("(i) small long-read world: the port's CLI on cuda vs on the CPU")
+    compare_devices(long_read_world(WORLD_DIR, **SMALL_LONG_WORLD),
+                    "small long-read", exact=True)
+    sync()
+
+    phase("(t) every action new to the port, small world: cuda vs the CPU")
+    small_actions(small)
+    sync()
+
     phase("(e) end to end: the port's CLI on cuda, IMGT-scale world")
     world = built_world("typing_world")
+    start_bam_build()
     print(f"world: {world.graph}; planted {world.truth}")
     res = run_port("cuda", world, os.path.join(WORLD_DIR, "runs", "cuda"))
     check_launched(res, ("K1", "K3"))
@@ -986,12 +983,7 @@ def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> dict:
     report_run("port on cuda", res)
     nw["launches"] = res["launches"]["K1"]
     pair["launches"] = res["launches"]["K3"]
-    one_process = {"imgt": (world, res)}
-    sync()
-
-    phase("(f) small world: the port's CLI on cuda vs on the CPU")
-    small = typing_world(WORLD_DIR, **SMALL_WORLD)
-    one_process["small"] = (small, compare_devices(small, "small")["cuda"])
+    one_process["imgt"] = (world, res)
     sync()
 
     phase("(h) end to end on long reads: the port's CLI on cuda")
@@ -1008,11 +1000,6 @@ def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> dict:
     pair_long["launches"] = res["launches"]["K3"]
     for C, R in sorted(res["loci"].values(), key=lambda cr: cr[1]):
         check_pair(C, R, pair_long)     # the record keeps the largest R
-    sync()
-
-    phase("(i) small long-read world: the port's CLI on cuda vs on the CPU")
-    compare_devices(long_read_world(WORLD_DIR, **SMALL_LONG_WORLD),
-                    "small long-read", exact=True)
     sync()
     return one_process
 
@@ -1079,6 +1066,356 @@ def kir_asm_phases(nw_kir: dict, pair_kir: dict, nw_asm: dict) -> None:
     compare_kir_asm_devices(kir_world(WORLD_DIR, **SMALL_KIR_WORLD),
                             asm_world(WORLD_DIR, **SMALL_WORLD))
     sync()
+
+
+def pinned_bytes() -> tuple[int, int]:
+    """(bytes of page-locked host memory the process holds, page-locked
+    blocks it has allocated so far) by PyTorch's host allocator, where all
+    of the port's pinned buffers come from (``NWRunner.host_buffer``)."""
+    import torch
+    st = torch.cuda.host_memory_stats()
+    if not {"allocated_bytes.current", "num_host_alloc"} <= set(st):
+        fail(f"host_memory_stats lacks the pinned-memory counts: {sorted(st)}")
+    return st["allocated_bytes.current"], st["num_host_alloc"]
+
+
+@contextlib.contextmanager
+def per_sample_probe(samples: list):
+    """While in the context, every run_hla_typing call appends to `samples`
+    its wall, the K1 and K3 launches it made and the page-locked bytes
+    after it (``validate_cohort`` looks the function up in
+    ``models.pipeline`` at each call)."""
+    from hla_la_tpu_torch.models import pipeline
+    from hla_la_tpu_torch.ops.cuda_nw import banded_nw_cuda
+    from hla_la_tpu_torch.ops.cuda_pair import pair_ll_diff_cuda
+    inner = pipeline.run_hla_typing
+
+    def probed(*args, **kwargs):
+        k1, k3 = banded_nw_cuda.launches, pair_ll_diff_cuda.launches
+        t0 = time.perf_counter()
+        res = inner(*args, **kwargs)
+        sync()
+        samples.append({"wall_s": time.perf_counter() - t0,
+                        "K1": banded_nw_cuda.launches - k1,
+                        "K3": pair_ll_diff_cuda.launches - k3,
+                        "pinned": pinned_bytes()})
+        return res
+    pipeline.run_hla_typing = probed
+    try:
+        yield
+    finally:
+        pipeline.run_hla_typing = inner
+
+
+def run_cli(argv: list, device: str, tag: str) -> dict:
+    """The port's CLI on `argv` + ``--device device``; the kernels' launch
+    counters are zeroed just before the run and read just after it.
+    Returns its wall, launches, printed lines and log."""
+    from hla_la_tpu_torch.cli import main as port_main
+    from hla_la_tpu_torch.ops.cuda_nw import banded_nw_cuda
+    from hla_la_tpu_torch.ops.cuda_nw_long import banded_nw_long_cuda
+    from hla_la_tpu_torch.ops.cuda_pair import pair_ll_diff_cuda
+
+    kernels = {"K1": banded_nw_cuda, "K2": banded_nw_long_cuda,
+               "K3": pair_ll_diff_cuda}
+    log, out = io.StringIO(), io.StringIO()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with captured_stderr(log), \
+            contextlib.redirect_stdout(_Tee(sys.stdout, out)):
+        rc = port_main([*argv, "--device", device])
+    if device == "cuda":
+        sync()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"{tag} on {device}: exit code {rc}")
+    return {"wall_s": wall, "launches": {k: fn.launches
+                                         for k, fn in kernels.items()},
+            "lines": out.getvalue().splitlines(), "log": log.getvalue()}
+
+
+def all_jobs_on(device: str, log: str, n_runs: int, tag: str) -> list[int]:
+    """The NW jobs of each of the `n_runs` aligner runs logged in `log`;
+    fails unless each ran all of them on `device`."""
+    jobs = [int(n) for n in re.findall(r"n_chain_extensions: (\d+)", log)]
+    on = [int(n) for n in re.findall(rf"nw_jobs_on_{device}: (\d+)", log)]
+    if len(jobs) != n_runs or jobs != on or not all(jobs):
+        fail(f"{tag}: NW jobs {jobs}, on {device} {on}")
+    return jobs
+
+
+def same_calls(got_rows: list, want_rows: list, tag: str) -> float:
+    """Two bestguess tables: every column equal but Q1/Q2, within Q_TOL;
+    returns the largest Q difference."""
+    if len(got_rows) != len(want_rows) or got_rows[0] != want_rows[0]:
+        fail(f"{tag}: bestguess tables differ in shape")
+    q_err = 0.0
+    for a, b in zip(got_rows[1:], want_rows[1:]):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if i in (3, 4):
+                q_err = max(q_err, abs(float(x) - float(y)))
+            elif x != y:
+                fail(f"{tag}: column {got_rows[0][i]}: {x} vs {y}")
+    if q_err > Q_TOL:
+        fail(f"{tag}: Q1/Q2 differ by {q_err:.3g} > {Q_TOL}")
+    return q_err
+
+
+def check_remapped(path: str, n_levels: int, n_records: int, tag: str):
+    """remapAndReduce's BAM: `n_records` records on the one PRG contig,
+    coordinate-sorted, every position inside the PRG's levels."""
+    from hla_la_tpu_torch.io.bam import BamReader
+    rd = BamReader(path)
+    recs = list(rd)
+    if rd.references != [("PRG", n_levels)]:
+        fail(f"{tag}: contigs {rd.references}, want PRG of {n_levels}")
+    pos = [r.pos for r in recs]
+    if len(recs) != n_records or pos != sorted(pos) or not all(
+            0 <= p < n_levels for p in pos):
+        fail(f"{tag}: {len(recs)} records (want {n_records}), sorted "
+             f"{pos == sorted(pos)}, positions {min(pos)}-{max(pos)} of "
+             f"{n_levels} levels")
+    return recs
+
+
+def cohort_phases(one_process: dict, rec: dict) -> None:
+    """Phases (r) and (s): --action validate on a cohort of two IMGT-scale
+    samples and --action remapAndReduce on the first one's BAM."""
+    from hla_la_tpu_torch.graph.package import GraphPackage
+    from hla_la_tpu_torch.sim import cohort_world
+
+    _, one = one_process["imgt"]
+    runs = os.path.join(WORLD_DIR, "runs")
+    phase("(r) --action validate on cuda: a cohort of two IMGT-scale samples")
+    t0 = time.perf_counter()
+    wait_build("world_bam")
+    built_world("second_sample")
+    cohort = cohort_world(WORLD_DIR)
+    print(f"cohort world ready after a further {time.perf_counter() - t0:.1f}"
+          f" s")
+    print(f"cohort: {[(s_.sample_id, s_.bam) for s_ in cohort.samples]}; "
+          f"the truth table names {cohort.wrong[2]} in place of a planted "
+          f"{cohort.wrong[1]} allele of {cohort.wrong[0]}")
+    out_dir = os.path.join(runs, "cohort")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    samples = []
+    with per_sample_probe(samples):
+        res = run_cli(["--action", "validate", *cohort.cli_args(),
+                       "--outputDirectory", out_dir], "cuda",
+                      "--action validate")
+    want = "cohort accuracy: 87.50% over 2 samples (1 discordant calls)"
+    if res["lines"] != [want]:
+        fail(f"--action validate printed {res['lines']}, want [{want!r}]")
+    jobs = all_jobs_on("cuda", res["log"], 2, "--action validate")
+    align = [float(x) for x in re.findall(
+        r"aligned \d+/\d+ pairs \+ \d+/\d+ unpaired in ([0-9.]+) s",
+        res["log"])]
+    typed = [float(x) for x in re.findall(r"typed \d+ loci in ([0-9.]+) s",
+                                          res["log"])]
+    sample, locus, _ = cohort.wrong
+    pileups = [f for f in os.listdir(out_dir)
+               if f.startswith("pileup_analysis_")]
+    if pileups != [f"pileup_analysis_{sample}_{locus}.txt"]:
+        fail(f"pileup analyses {pileups}")
+    n_cols = len(read_table(os.path.join(out_dir, pileups[0]))) - 2
+    if n_cols < 1:
+        fail(f"{pileups[0]} lists no column")
+    q_err = same_calls(read_table(os.path.join(
+        out_dir, "S1", "hla", "R1_bestguess.txt")), one["bestguess"],
+        "S1 of the cohort against (e)")
+    if len(samples) != 2 or len(align) != 2 or len(typed) != 2:
+        fail(f"{len(samples)} samples typed, {align}, {typed}")
+    if (samples[0]["K1"], samples[0]["K3"]) != (one["launches"]["K1"],
+                                                one["launches"]["K3"]) \
+            or samples[1]["K1"] <= 0 or samples[1]["K3"] <= 0:
+        fail(f"launches per sample {samples}, (e) {one['launches']}")
+    if samples[1]["pinned"] != samples[0]["pinned"]:
+        fail(f"page-locked memory grew from S1 to S2: {samples}")
+    for s_, n, a, t in zip(samples, jobs, align, typed):
+        print(f"  sample: wall {s_['wall_s']:.3f} s (align {a:.3f} s, type "
+              f"{t:.3f} s), {n} NW jobs all on the card, K1 {s_['K1']} and "
+              f"K3 {s_['K3']} launches; after it {s_['pinned'][0]} "
+              f"page-locked bytes in {s_['pinned'][1]} allocations so far")
+    print(f"--action validate: {want}; {pileups[0]} lists {n_cols} "
+          f"column(s); S1's calls are (e)'s (max |dQ| {q_err:.3g}); whole "
+          f"CLI {res['wall_s']:.3f} s; launches {res['launches']}")
+    rec["nw_cohort"].update({k: v for k, v in rec["nw"].items()
+                             if k not in ("path", "launches")},
+                            launches=res["launches"]["K1"])
+    rec["pair_cohort"].update({k: v for k, v in rec["pair"].items()
+                               if k not in ("path", "launches")},
+                              launches=res["launches"]["K3"])
+    sync()
+
+    phase("(s) --action remapAndReduce on cuda: S1's BAM")
+    out = os.path.join(runs, "remapped.bam")
+    res = run_cli(["--action", "remapAndReduce", "--BAM",
+                   cohort.samples[0].bam, "--graph", cohort.graph, "--out",
+                   out], "cuda", "--action remapAndReduce")
+    m = re.fullmatch(r"remapAndReduce: (\d+) pairs \+ (\d+) unpaired reads "
+                     r"remapped to PRG coordinates -> (.*)",
+                     res["lines"][-1] if res["lines"] else "")
+    if not m or m.group(3) != out:
+        fail(f"--action remapAndReduce printed {res['lines']}")
+    n_pairs, n_un = int(m.group(1)), int(m.group(2))
+    jobs = all_jobs_on("cuda", res["log"], 1, "--action remapAndReduce")
+    n_levels = GraphPackage(cohort.graph).prg().n_levels
+    check_remapped(out, n_levels, 2 * n_pairs + n_un,
+                   "--action remapAndReduce")
+    if res["launches"]["K1"] <= 0 or n_pairs < 0.9 * one["pairs"]:
+        fail(f"remapAndReduce: {n_pairs} of {one['pairs']} pairs, "
+             f"launches {res['launches']}")
+    print(f"--action remapAndReduce: {n_pairs} pairs + {n_un} unpaired "
+          f"reads written of {one['pairs']} pairs, coordinate-sorted on PRG "
+          f"({n_levels} levels); {jobs[0]} NW jobs all on the card; K1 "
+          f"{res['launches']['K1']} launches; whole CLI {res['wall_s']:.3f} s")
+    rec["nw_remap"].update({k: v for k, v in rec["nw"].items()
+                            if k not in ("path", "launches")},
+                           launches=res["launches"]["K1"])
+    sync()
+
+
+# the actions that align or type, and what each must print last on cuda
+ALIGNING_SELF_TESTS = ("testPRGMapping", "testPRGMappingUnpaired",
+                       "TestHLATyping", "testAlignments2Chains",
+                       "testChainExtension")
+RATE = re.compile(r", [0-9.]+ reads/s")
+
+
+def small_actions(small) -> None:
+    """Each action the port gained with validate and remapAndReduce, on
+    (f)'s small world and its cohort, through the CLI on cuda and on the
+    CPU: the same printed lines (but testPRGMapping's rate) and the same
+    files (BAMs as decoded records, pair dumps and bestguess tables with
+    Q within Q_TOL, the rest byte for byte)."""
+    from hla_la_tpu_torch.io.fastq import read_fastq
+    from hla_la_tpu_torch.sim import cohort_world
+
+    cohort = cohort_world(WORLD_DIR, **SMALL_WORLD)
+    root = os.path.join(WORLD_DIR, "runs", "actions")
+    shutil.rmtree(root, ignore_errors=True)
+    inputs = os.path.join(root, "inputs")
+    os.makedirs(inputs)
+    seqs = [r.seq for r, _ in zip(read_fastq(small.fastq1), range(400))]
+    with open(os.path.join(inputs, "genome.fa"), "w") as fh:
+        fh.write(">g1\n" + "".join(seqs[:30]) + "\n")
+    with open(os.path.join(inputs, "query.fa"), "w") as fh:
+        fh.write(">q\n" + "".join(seqs[:30])[500:2500] + "\n")
+    with open(os.path.join(inputs, "panel.fa"), "w") as fh:
+        fh.write(f">hit\n{''.join(seqs[:30])}\n>miss\n{'ACGT' * 30}\n")
+    with open(os.path.join(inputs, "panel.mfa"), "w") as fh:
+        fh.write(">h1\nACGTAACGTACGTACGTACGTACGT\n"
+                 ">h2\nACGTTACGTACG-ACGTACGTACGT\n"
+                 ">h3\nACGTAACGTACGGACG-ACGTACGT\n")
+    s1_bam = cohort.samples[0].bam
+    actions = {
+        "testBinary": [],
+        "prepareGraph": ["--graph", "{wd}/g"],
+        "simulate": ["--workingDir", "{wd}", "--seed", "3"],
+        "oneSimulationFromPRG": ["--workingDir", "{wd}", "--seed", "4"],
+        "simulateFromNormalGenome": ["--ASMfasta", inputs + "/genome.fa",
+                                     "--workingDir", "{wd}"],
+        "checkSequencePresence": ["--graph", small.graph],
+        "globalAlignment": ["--ASMfasta", inputs + "/query.fa", "--ref",
+                            inputs + "/genome.fa", "--workingDir", "{wd}"],
+        **{a: ["--workingDir", "{wd}"] for a in ALIGNING_SELF_TESTS},
+        "validate": [*cohort.cli_args(), "--workingDir", "{wd}"],
+        "extractkMerCounts": ["--graph", small.graph, *small.cli_args(),
+                              "--outputDirectory", "{wd}"],
+        "graphFromMFA": ["--ASMfasta", inputs + "/panel.mfa", "--graph",
+                         "{wd}/g"],
+        "downsampleBAM": ["--BAM", s1_bam, "--out", "{wd}/ds.bam",
+                          "--fraction", "0.3", "--seed", "2"],
+        # on the downsampled BAM: the action is host work and scans reads
+        "findKIRinBAM": ["--BAM", os.path.join(root, "downsampleBAM", "cpu",
+                                               "ds.bam"),
+                         "--ALTpanel", inputs + "/panel.fa"],
+        "remapAndReduce": ["--BAM", s1_bam, "--graph", small.graph,
+                           "--out", "{wd}/prg.bam"],
+    }
+    walls = []
+    for action, args in actions.items():
+        got = {}
+        for dev in ("cuda", "cpu"):
+            wd = os.path.join(root, action, dev)
+            os.makedirs(wd)
+            if action == "prepareGraph":
+                shutil.copytree(small.graph, wd + "/g")
+            got[dev] = run_cli(["--action", action,
+                                *[a.format(wd=wd) for a in args]], dev,
+                               f"--action {action}")
+            got[dev]["lines"] = [RATE.sub("", ln).replace(wd, "WD")
+                                 for ln in got[dev]["lines"]]
+        if got["cuda"]["lines"] != got["cpu"]["lines"]:
+            fail(f"--action {action}: cuda printed {got['cuda']['lines']}, "
+                 f"the CPU {got['cpu']['lines']}")
+        n = same_outputs(os.path.join(root, action, "cuda"),
+                         os.path.join(root, action, "cpu"), action)
+        last = got["cuda"]["lines"][-1] if got["cuda"]["lines"] else ""
+        if action in ALIGNING_SELF_TESTS:
+            if not (last == "OK" or last.endswith(" — OK")):
+                fail(f"--action {action} on cuda ends with {last!r}")
+            if got["cuda"]["launches"]["K1"] <= 0:
+                fail(f"--action {action}: no K1 launch on cuda")
+        walls.append(f"{action} {got['cuda']['wall_s']:.2f}/"
+                     f"{got['cpu']['wall_s']:.2f} s "
+                     f"(K1 {got['cuda']['launches']['K1']}, "
+                     f"K3 {got['cuda']['launches']['K3']}; {n} files)")
+    kmers = [run_port(dev, small, os.path.join(root, f"kmers_{dev}"),
+                      ("--extractExonkMerCounts", "1"))
+             for dev in ("cuda", "cpu")]
+    files = [open(os.path.join(r["dir"], "kMerCounts.txt"), "rb").read()
+             for r in kmers]
+    if files[0] != files[1] or files[0].count(b"\n") < 100:
+        fail("--extractExonkMerCounts 1: kMerCounts.txt differs between "
+             "cuda and the CPU")
+    same_calls(kmers[0]["bestguess"], kmers[1]["bestguess"],
+               "--extractExonkMerCounts 1")
+    print(f"{len(actions)} actions and --extractExonkMerCounts 1: cuda and "
+          f"CPU print the same lines and write the same files; the five "
+          f"aligning self-tests print OK on cuda; wall cuda/CPU: "
+          + "; ".join(walls))
+
+
+def same_outputs(got_dir: str, want_dir: str, tag: str) -> int:
+    """Fail unless both directories hold the same files: BAMs as decoded
+    records, pair dumps by value (P within Q_TOL, LL within the pair
+    reduction's tolerances, mismatches equal), bestguess tables by
+    same_calls, the rest byte for byte.  Returns their number."""
+    from hla_la_tpu_torch.io.bam import BamReader
+
+    def tree(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, files in os.walk(root) for f in files)
+    names = tree(want_dir)
+    if tree(got_dir) != names:
+        fail(f"{tag}: files {sorted(set(tree(got_dir)) ^ set(names))} are "
+             f"in one run only")
+    for name in names:
+        a, b = os.path.join(got_dir, name), os.path.join(want_dir, name)
+        if name.endswith(".bam"):
+            same = [vars(r) for r in BamReader(a)] == \
+                [vars(r) for r in BamReader(b)]
+        elif "_PP_" in name:
+            # keyed by cluster pair: pairs of near-equal LL may swap rows
+            ta, tb = ({r[0]: r[1:] for r in read_table(f)[1:]}
+                      for f in (a, b))
+            same = ta.keys() == tb.keys() and all(
+                abs(float(x[0]) - float(y[0])) <= Q_TOL
+                and math.isclose(float(x[1]), float(y[1]),
+                                 rel_tol=PAIR_RTOL, abs_tol=PAIR_ATOL)
+                and x[2] == y[2] for x, y in
+                ((ta[k], tb[k]) for k in ta))
+        elif "R1_bestguess" in name:
+            same_calls(read_table(a), read_table(b), f"{tag} {name}")
+            same = True
+        else:
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                same = fa.read() == fb.read()
+        if not same:
+            fail(f"{tag}: {name} differs between cuda and the CPU")
+    return len(names)
 
 
 def check_tile_ranges(C: int, R: int) -> None:
@@ -1436,6 +1773,7 @@ def main() -> int:
         one_process = hla_phases(rec["nw"], rec["pair"], rec["nw_long"],
                                  rec["pair_long"])
         kir_asm_phases(rec["nw_kir"], rec["pair_kir"], rec["nw_asm"])
+        cohort_phases(one_process, rec)
     finally:
         stop_world_builds()
     flag_phases()

@@ -20,8 +20,15 @@ whose cluster axis follows from N as in the reference.
 package directory or a FASTA), ``--action ASM`` types assembly contigs
 (``--ASMfasta``) against a graph package; ``KIRsimulation``,
 ``buildKIRpanel`` and ``checkKIRgraph`` are the KIR module's self-test,
-panel packager and graph check.  Not ported yet: other actions (they exit
-non-zero).
+panel packager and graph check.  ``--action validate`` types every sample
+of a cohort sheet (``--validationBAMs``) against a truth table
+(``--trueHLA``) in one process; ``remapAndReduce`` realigns a BAM's reads
+to the PRG and writes them as a BAM in PRG coordinates (``--out``).  Every
+other action of the reference CLI is here too, with its messages: the
+aligning self-tests (``testPRGMapping``, ``testPRGMappingUnpaired``,
+``TestHLATyping``, ``testAlignments2Chains``, ``testChainExtension``), the
+simulators, the graph tools and the BAM tools.  Every action that aligns or
+types runs on ``--device``.
 
   python -m hla_la_tpu_torch --action HLA --FASTQ1 R_1.fq --FASTQ2 R_2.fq \\
       --graph /path/to/graphdir --sampleID S1 --workingDir out/ --device cuda
@@ -33,6 +40,10 @@ non-zero).
       --sampleID S1 --workingDir out/ --device cuda
   python -m hla_la_tpu_torch --action ASM --ASMfasta contigs.fa \\
       --graph /path/to/graphdir --sampleID S1 --workingDir out/ --device cuda
+  python -m hla_la_tpu_torch --action validate --validationBAMs sheet.txt \\
+      --trueHLA truth.txt --graph /path/to/graphdir --workingDir out/
+  python -m hla_la_tpu_torch --action remapAndReduce --BAM in.bam \\
+      --graph /path/to/graphdir --out prg.bam --device cuda
 """
 
 from __future__ import annotations
@@ -93,7 +104,7 @@ def main(argv=None, mesh=None) -> int:
     ap.add_argument("--extractExonkMerCounts", type=int, default=0,
                     help="with --action HLA: also write per-exon k-mer "
                          "counts over the extracted reads "
-                         "(HLA-LA.pl:543-552); not ported yet, refused")
+                         "(HLA-LA.pl:543-552)")
     ap.add_argument("--decoyFasta", default="",
                     help="explicit decoy genome FASTA for the paralog "
                     "defense (overrides extendedReferenceGenome)")
@@ -106,13 +117,15 @@ def main(argv=None, mesh=None) -> int:
                     "FASTA) for --action KIR / buildKIRpanel output dir")
     ap.add_argument("--annotations", help="gene annotation TSV "
                     "(hap gene start0 stop0) for --action buildKIRpanel")
+    ap.add_argument("--validationBAMs", help="sample sheet for --action "
+                    "validate")
     ap.add_argument("--resolution", type=int, default=2,
                     help="nomenclature fields compared in evaluation")
     ap.add_argument("--nHosts", type=int, default=1,
-                    help="--action HLA: total hosts of a read-slice "
-                         "alignment run")
+                    help="multi-host sharding: total hosts (validate: "
+                         "cohort rows; HLA: read-slice alignment shards)")
     ap.add_argument("--hostIdx", type=int, default=0,
-                    help="--action HLA with --nHosts>1: this host's index")
+                    help="multi-host sharding: this host's index")
     ap.add_argument("--shardDir",
                     help="--action HLA with --nHosts>1: directory this "
                          "host's align shard is written to")
@@ -123,14 +136,20 @@ def main(argv=None, mesh=None) -> int:
                     help="--action HLA: ranks of a torch.distributed group "
                          "started on this host (0: one process); rank r "
                          "computes on card r modulo the card count")
+    ap.add_argument("--out", help="output path (remapAndReduce: BAM; "
+                                  "downsampleBAM: BAM or batch directory)")
+    ap.add_argument("--fraction", type=float, default=None,
+                    help="--action downsampleBAM: keep-pair probability")
+    ap.add_argument("--targetGigabases", type=float, default=None,
+                    help="--action downsampleBAM: depth target in Gb "
+                         "(downsample_WGS_BAMs.pl semantics)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     args.mesh = mesh
     args.argv = list(sys.argv[1:] if argv is None else argv)
     action = ACTIONS.get(args.action)
     if action is None:
-        print(f"--action {args.action}: not yet ported (only "
-              f"{', '.join(ACTIONS)})", file=sys.stderr)
+        print(f"unknown action {args.action}", file=sys.stderr)
         return 2
     return action(args)
 
@@ -263,11 +282,6 @@ def action_hla(args) -> int:
                 "--extractExonkMerCounts is not available on sharded "
                 "multi-host runs: counts must cover ALL reads — run "
                 "--action extractkMerCounts on the full FASTQs instead")
-        raise SystemExit(
-            "--extractExonkMerCounts needs tools.extract_kmer_counts, which "
-            "this package does not hold yet; run the reference package's "
-            "--action extractkMerCounts on the extracted FASTQs "
-            "(--keepExtractedFastq 1) instead")
     if args.sharded and args.mesh is None:
         # this process only starts the ranks; each runs this action again
         # with its mesh
@@ -328,6 +342,13 @@ def action_hla(args) -> int:
                  f"{out_dir}/hla/R1_bestguess.txt")
     if not writes:
         return 0
+    if args.extractExonkMerCounts:
+        # the reference runs extractkMerCounts.pl over the extracted FASTQs
+        # as part of the HLA action (HLA-LA.pl:543-552); same here, over
+        # the reads just typed (flag combinations checked up front)
+        _write_exon_kmer_counts(
+            pkg, [r for p in pairs for r in p] + list(unpaired), out_dir,
+            args.device)
     for r in res.results:
         a1, a2 = r.alleles_g_or_raw()
         print(f"{r.locus}\t{a1}\t{a2}\tQ1={r.q1_allele1:.4f}/"
@@ -576,7 +597,463 @@ def action_check_kir_graph(args) -> int:
     return 1 if bad else 0
 
 
-ACTIONS = {"HLA": action_hla, "ASM": action_asm, "KIR": action_kir,
+def action_test_binary(args) -> int:
+    print("hla-la-tpu binary functional!")
+    return 0
+
+
+def action_prepare_graph(args) -> int:
+    pkg = _require_graph(args)
+    from .utils.timing import log_progress
+    log_progress("prepareGraph: parsing graph.txt and compiling dense arrays")
+    c = pkg.prepare()
+    log_progress(f"prepareGraph: done — {c.n_levels} levels, {c.n_nodes} "
+                 f"nodes, {len(c.edge_from)} edges, {len(c.jump_from)} "
+                 f"gap-jump paths -> {pkg.serialized_path}")
+    return 0
+
+
+def action_check_presence(args) -> int:
+    """Check that sequences are emittable paths of the graph
+    (testCheckPresence / checkSeq actions, HLA-LA.cpp:152, 1106-1148).
+    Sequences come from --FASTQU (FASTA also accepted via --ASMfasta)."""
+    pkg = _require_graph(args)
+    prg = pkg.prg()
+    seqs: dict[str, str] = {}
+    if args.ASMfasta:
+        from .io.fasta import read_fasta
+        seqs.update(read_fasta(args.ASMfasta))
+    if args.FASTQU:
+        from .io.fastq import read_fastq
+        seqs.update({r.name: r.seq for r in read_fastq(args.FASTQU)})
+    if not seqs:
+        # default self-test: simulated haplotypes must be graph paths
+        import numpy as np
+        rng = np.random.default_rng(args.seed or 1)
+        ok = True
+        for s, _, _ in prg.simulate_random_paths(10, rng):
+            ok &= prg.path_emits(s)
+        print("simulated-path presence check:", "OK" if ok else "FAILED")
+        return 0 if ok else 1
+    rc = 0
+    for name, s in seqs.items():
+        present = prg.path_emits(s)
+        print(f"{name}\t{'present' if present else 'ABSENT'}")
+        rc |= 0 if present else 1
+    return rc
+
+
+def action_global_alignment(args) -> int:
+    """Chain-enriched global alignment of one query sequence against one
+    reference (globalAlignment.pl equivalent).  --ASMfasta = query FASTA,
+    --ref = reference FASTA, --outputDirectory/--workingDir for output."""
+    from .io.fasta import read_fasta
+    from .mapping.global_align import write_global_alignment
+    if not args.ASMfasta or not args.ref:
+        raise SystemExit("globalAlignment needs --ASMfasta <query.fa> "
+                         "--ref <reference.fa>")
+    query = next(iter(read_fasta(args.ASMfasta).values()))
+    reference = next(iter(read_fasta(args.ref).values()))
+    out = os.path.join(args.outputDirectory or args.workingDir,
+                       "globalAlignment.txt")
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    mism, strand = write_global_alignment(out, query, reference)
+    print(f"globalAlignment: {mism} mismatches, strand {strand} -> {out}")
+    return 0
+
+
+def action_validate(args) -> int:
+    """Cohort validation (HLAtypeinference_validation.pl equivalent): the
+    samples of --validationBAMs typed one after the other in this process,
+    on --device; --nHosts/--hostIdx select cohort rows."""
+    from .validation import read_sample_sheet, validate_cohort
+    pkg = _require_graph(args)
+    if not args.validationBAMs or not args.trueHLA:
+        raise SystemExit("--validationBAMs and --trueHLA required")
+    if args.sharded or args.maxThreads > 1:
+        # run_hla_typing takes its worker pool and its ranks from the HLA
+        # action's arguments; a cohort run types in this one process
+        raise SystemExit("--sharded and --maxThreads are --action HLA "
+                         "options; --action validate types each sample in "
+                         "one process")
+    samples = read_sample_sheet(args.validationBAMs)
+    out_dir = args.outputDirectory or os.path.join(args.workingDir,
+                                                   "validation")
+    report = validate_cohort(pkg, samples, args.trueHLA, out_dir,
+                             args.device,
+                             resolution=args.resolution,
+                             n_hosts=args.nHosts, host_idx=args.hostIdx,
+                             ref=args.ref)
+    print(f"cohort accuracy: {report.total_accuracy * 100:.2f}% over "
+          f"{report.n_samples} samples "
+          f"({len(report.discordant)} discordant calls)")
+    return 0
+
+
+def action_simulate(args) -> int:
+    from .sim.graph_sim import simulate_prg_package
+    from .sim.read_sim import ReadSimulator, write_levels_file
+    from .io.fastq import write_fastq
+
+    rng = np.random.default_rng(args.seed or 0)
+    out = args.workingDir
+    sim = simulate_prg_package(rng)
+    pkg = sim.write_package(os.path.join(out, "simulated_graph"))
+    rs = ReadSimulator(rng)
+    h1, h2 = 1, 2
+    pairs = []
+    for h in (h1, h2):
+        seq, levels = sim.linearized(h)
+        pairs += rs.simulate_pairs_from_string(seq, levels, 15.0,
+                                               name_prefix=f"hap{h}")
+    write_fastq(os.path.join(out, "R_1.fq"), [p.r1.to_fastq() for p in pairs])
+    write_fastq(os.path.join(out, "R_2.fq"), [p.r2.to_fastq() for p in pairs])
+    write_levels_file(os.path.join(out, "R_1.fq.levels"),
+                      [p.r1 for p in pairs])
+    write_levels_file(os.path.join(out, "R_2.fq.levels"),
+                      [p.r2 for p in pairs])
+    print(f"simulated package + {len(pairs)} read pairs (diploid "
+          f"haplotypes {h1}/{h2}) in {out}")
+    return 0
+
+
+def action_test_prg_mapping(args) -> int:
+    """Simulation round-trip (testPRGMapping, HLA-LA.cpp:1533-1621)."""
+    from .graph.package import GraphPackage
+    from .models.aligner import ReadAligner
+    from .sim.graph_sim import simulate_prg_package
+    from .sim.read_sim import ReadSimulator
+    from .sim.truth import TrueReadLevels
+    from .utils.timing import Timer
+
+    rng = np.random.default_rng(args.seed or 99)
+    sim = simulate_prg_package(rng)
+    pkg = sim.write_package(os.path.join(args.workingDir, "testPRG_graph"))
+    rs = ReadSimulator(rng)
+    seq, levels = sim.linearized(1)
+    pairs = rs.simulate_pairs_from_string(seq, levels, 10.0)
+    truth = TrueReadLevels({})
+    for p in pairs:
+        truth.truth[p.r1.name + "/1"] = p.r1.levels
+        truth.truth[p.r2.name + "/2"] = p.r2.levels
+    aligner = ReadAligner(pkg, device=args.device)
+    fq = [(p.r1.to_fastq(), p.r2.to_fastq()) for p in pairs]
+    with Timer() as t:
+        aligned = aligner.align_pairs(fq, 110, 35, truth=truth)
+    acc = truth.accuracy()
+    rate = t.rate(2 * len(pairs))
+    print(f"testPRGMapping: {len(aligned)}/{len(pairs)} pairs aligned, "
+          f"per-base truth accuracy {acc:.4f}, {rate:.1f} reads/s")
+    assert acc > 0.9, "accuracy regression"
+    print("OK")
+    return 0
+
+
+def action_test_prg_mapping_unpaired(args) -> int:
+    """Unpaired simulation round-trip (testPRGMappingUnpaired,
+    HLA-LA.cpp:1386-1532)."""
+    from .models.aligner import ReadAligner
+    from .sim.graph_sim import simulate_prg_package
+    from .sim.read_sim import ReadSimulator
+    from .sim.truth import TrueReadLevels
+
+    rng = np.random.default_rng(args.seed or 13)
+    sim = simulate_prg_package(rng)
+    pkg = sim.write_package(os.path.join(args.workingDir,
+                                         "testPRGunpaired_graph"))
+    rs = ReadSimulator(rng)
+    seq, levels = sim.linearized(2)
+    reads = rs.simulate_unpaired_from_string(seq, levels, 6.0,
+                                             read_length=150)
+    truth = TrueReadLevels({r.name: r.levels for r in reads})
+    aligner = ReadAligner(pkg, device=args.device)
+    # unpaired mapping test: no min-length gate here (HLA typing applies it)
+    out = aligner.align_unpaired([r.to_fastq() for r in reads], truth=truth)
+    n_ok = sum(1 for a in out if a is not None)
+    acc = truth.accuracy()
+    print(f"testPRGMappingUnpaired: {n_ok}/{len(reads)} aligned, "
+          f"per-base truth accuracy {acc:.4f}")
+    assert acc > 0.9
+    print("OK")
+    return 0
+
+
+def action_simulate_from_genome(args) -> int:
+    """Simulate paired reads from a plain FASTA (simulateFromNormalGenome,
+    HLA-LA.cpp:1893)."""
+    from .io.fasta import read_fasta
+    from .io.fastq import write_fastq
+    from .sim.read_sim import ReadSimulator, write_levels_file
+
+    if not args.ASMfasta:
+        raise SystemExit("--ASMfasta <genome.fa> required")
+    rng = np.random.default_rng(args.seed or 5)
+    genome = read_fasta(args.ASMfasta)
+    rs = ReadSimulator(rng)
+    pairs = []
+    for name, seq in genome.items():
+        pairs += rs.simulate_pairs_from_string(
+            seq, np.arange(len(seq)), 2.0, name_prefix=name)
+    out = args.outputDirectory or args.workingDir
+    os.makedirs(out, exist_ok=True)
+    write_fastq(os.path.join(out, "R_1.fq"), [p.r1.to_fastq() for p in pairs])
+    write_fastq(os.path.join(out, "R_2.fq"), [p.r2.to_fastq() for p in pairs])
+    write_levels_file(os.path.join(out, "R_1.fq.levels"),
+                      [p.r1 for p in pairs])
+    write_levels_file(os.path.join(out, "R_2.fq.levels"),
+                      [p.r2 for p in pairs])
+    print(f"simulated {len(pairs)} pairs from {len(genome)} contigs -> {out}")
+    return 0
+
+
+def action_test_hla_typing(args) -> int:
+    """Simulate individual -> type -> compare (TestHLATyping,
+    HLA-LA.cpp:1262-1340)."""
+    from .models.pipeline import run_hla_typing
+    from .sim.graph_sim import simulate_prg_package
+    from .sim.read_sim import ReadSimulator
+
+    rng = np.random.default_rng(args.seed or 7)
+    sim = simulate_prg_package(rng)
+    pkg = sim.write_package(os.path.join(args.workingDir, "testTyping_graph"))
+    rs = ReadSimulator(rng)
+    h1, h2 = 1, 3
+    pairs = []
+    for h in (h1, h2):
+        seq, levels = sim.linearized(h)
+        pairs += rs.simulate_pairs_from_string(seq, levels, 15.0,
+                                               name_prefix=f"hap{h}")
+    fq = [(p.r1.to_fastq(), p.r2.to_fastq()) for p in pairs]
+    out_dir = os.path.join(args.workingDir, "testTyping_out")
+    res = run_hla_typing(pkg, pairs=fq, output_dir=out_dir,
+                         device=args.device)
+    want = {f"{h1 + 1:02d}", f"{h2 + 1:02d}"}
+    n_ok = 0
+    for r in res.results:
+        called = {a.split("*")[1].split(":")[0]
+                  for aid in (r.allele1_id, r.allele2_id)
+                  for a in aid.split(";")}
+        ok = called == want
+        n_ok += ok
+        print(f"{r.locus}: called {sorted(called)} truth {sorted(want)} "
+              f"{'OK' if ok else 'MISMATCH'}")
+    assert n_ok == len(res.results), "typing mismatch"
+    print("OK")
+    return 0
+
+
+def _write_exon_kmer_counts(pkg, reads, out_dir: str, device) -> str:
+    """Per-exon k-mer counts over `reads` -> <out_dir>/kMerCounts.txt
+    (extractkMerCounts.pl role, HLA-LA.pl:543-552); the typer that finds
+    the exons is made on `device`."""
+    from .models.typer import HLATyper
+    from .tools import extract_kmer_counts
+    typer = HLATyper(pkg, device=device)
+    exon_seqs: dict[str, str] = {}
+    for locus, exon_map in typer.graph_genes.items():
+        for exon_id, fn in exon_map.items():
+            _, rows = pkg.read_segment(fn)
+            for allele, vals in rows.items():
+                if ":" in allele:
+                    exon_seqs[f"{locus}_{exon_id}"] = "".join(vals)
+                    break
+    counts = extract_kmer_counts(reads, exon_seqs)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "kMerCounts.txt")
+    with open(path, "w") as fh:
+        fh.write("Exon\tkMer\tCount\n")
+        for name, kmers in sorted(counts.items()):
+            for mer, n in kmers.items():
+                fh.write(f"{name}\t{mer}\t{n}\n")
+    print(f"wrote {path} ({sum(len(v) for v in counts.values())} k-mers "
+          f"over {len(counts)} exons)")
+    return path
+
+
+def action_extract_kmer_counts(args) -> int:
+    """Per-exon k-mer counts over input reads (extractkMerCounts.pl,
+    HLA-LA.pl:543-552)."""
+    from .io.fastq import read_fastq
+    pkg = _require_graph(args)
+    reads = []
+    for p in (args.FASTQ1, args.FASTQ2, args.FASTQU):
+        if p:
+            reads += list(read_fastq(p))
+    if not reads:
+        raise SystemExit("need --FASTQ1/--FASTQ2/--FASTQU")
+    _write_exon_kmer_counts(pkg, reads,
+                            args.outputDirectory or args.workingDir,
+                            args.device)
+    return 0
+
+
+def action_graph_from_mfa(args) -> int:
+    """Build a graph package from a multiple-FASTA alignment
+    (Perl/graphFromMFA.pl equivalent).  --ASMfasta = input MFA,
+    --graph = output package directory."""
+    if not args.ASMfasta or not args.graph:
+        raise SystemExit("graphFromMFA needs --ASMfasta <mfa> --graph <out>")
+    from .tools import graph_from_mfa
+    pkg = graph_from_mfa(args.ASMfasta, args.graph)
+    prg = pkg.prg()
+    print(f"graph package written to {args.graph}: {prg.n_levels} levels, "
+          f"{prg.n_nodes} nodes, {prg.n_edges} edges")
+    return 0
+
+
+def action_find_kir_in_bam(args) -> int:
+    """Per-panel-sequence read hit counts (Perl/findKIRinBAM.pl equivalent).
+    --BAM = input, --ALTpanel = gene panel FASTA."""
+    if not args.BAM or not args.ALTpanel:
+        raise SystemExit("findKIRinBAM needs --BAM and --ALTpanel")
+    from .tools import find_gene_reads_in_bam
+    hits = find_gene_reads_in_bam(args.BAM, args.ALTpanel)
+    for name in sorted(hits):
+        print(f"{name}\t{hits[name]}")
+    return 0
+
+
+def action_test_alignments2chains(args) -> int:
+    """Projection self-test (testAlignments2Chains, HLA-LA.cpp:1622-1732):
+    simulate reads, align, and check every produced chain is concordant with
+    its read sequence and has nondecreasing graph levels."""
+    from .models.aligner import ReadAligner
+    from .sim.graph_sim import simulate_prg_package
+    from .sim.read_sim import ReadSimulator, revcomp
+
+    rng = np.random.default_rng(args.seed or 5)
+    sim = simulate_prg_package(rng, backbone_length=3000, n_haplotypes=6)
+    pkg = sim.write_package(os.path.join(args.workingDir, "a2c_graph"))
+    rs = ReadSimulator(rng, read_length=100, fragment_mean=280,
+                      fragment_sd=25, with_error=False)
+    pairs = []
+    for h in (1, 2):
+        seq, levels = sim.linearized(h)
+        # distinct prefixes: identical default names would collide in
+        # by_name and pair chains with the wrong haplotype's reads
+        pairs += rs.simulate_pairs_from_string(seq, levels, 6.0,
+                                               name_prefix=f"a2c{h}")
+    aligner = ReadAligner(pkg, device=args.device)
+    fq = [(p.r1.to_fastq(), p.r2.to_fastq()) for p in pairs]
+    out = aligner.align_pairs(fq, 280, 25)
+    n_checked = 0
+    by_name = {r1.name: (r1, r2) for (r1, r2) in fq}
+    from .sim.read_sim import revcomp
+    for ap in out:
+        r1, r2 = by_name[ap.read_id]
+        for chain, read in ((ap.chain1, r1), (ap.chain2, r2)):
+            lv = chain.levels[chain.levels >= 0]
+            assert (np.diff(lv) >= 0).all(), "levels must be nondecreasing"
+            # the chain must be concordant with its read sequence
+            # (checkChainConcordanceWithSequence, HLA-LA.cpp:1622-1732)
+            oriented = revcomp(read.seq) if chain.reverse else read.seq
+            chain.check_concordance(oriented)
+            n_checked += 1
+    print(f"testAlignments2Chains: {n_checked} chains checked, "
+          f"{len(out)}/{len(pairs)} pairs aligned — OK")
+    return 0
+
+
+def action_test_chain_extension(args) -> int:
+    """Graph-DP chain extension self-test (testChainExtension,
+    HLA-LA.cpp:1733-1861): truncate simulated alignments and verify the
+    graph realigner extends them back to full length with a valid path."""
+    from .models.aligner import ReadAligner
+    from .models.graph_fallback import GraphRealigner
+    from .sim.graph_sim import simulate_prg_package
+    from .sim.read_sim import ReadSimulator
+
+    rng = np.random.default_rng(args.seed or 6)
+    sim = simulate_prg_package(rng, backbone_length=1500, n_haplotypes=4)
+    pkg = sim.write_package(os.path.join(args.workingDir, "ce_graph"))
+    rs = ReadSimulator(rng, read_length=90, fragment_mean=250,
+                      fragment_sd=20, with_error=False)
+    seq, levels = sim.linearized(1)
+    pairs = rs.simulate_pairs_from_string(seq, levels, 4.0)
+    aligner = ReadAligner(pkg, device=args.device)
+    fq = [(p.r1.to_fastq(), p.r2.to_fastq()) for p in pairs]
+    out = aligner.align_pairs(fq, 250, 20)
+    realigner = GraphRealigner(pkg.compiled(), aligner.hap_seqs,
+                               aligner.hap_levels)
+    n_ext = 0
+    by_name = {r1.name: (r1, r2) for (r1, r2) in fq}
+    for ap in out:   # align_pairs returns a FILTERED list: map by name
+        r1, r2 = by_name[ap.read_id]
+        chain = ap.chain1
+        hap_idx = (aligner.prg_ids.index(chain.seq_idx)
+                   if chain.seq_idx in aligner.prg_ids else -1)
+        if hap_idx < 0:
+            continue
+        oriented = (r1.seq if not chain.reverse
+                    else r1.seq.translate(str.maketrans("ACGT", "TGCA"))[::-1])
+        qual = r1.qual if not chain.reverse else r1.qual[::-1]
+        re_al = realigner.realign(chain, hap_idx, oriented, qual, False)
+        if re_al is not None:
+            n_ext += 1
+    print(f"testChainExtension: {n_ext} chains re-extended via graph DP — OK")
+    return 0
+
+
+def action_remap_and_reduce(args) -> int:
+    """Extract + remap + reduce a WGS BAM/CRAM to a PRG-coordinate BAM
+    (Perl/remapAndReduce.pl workflow with the graph aligner as remapper)."""
+    _require_graph(args)
+    if not args.BAM or not args.out:
+        raise SystemExit("remapAndReduce needs --BAM <in.bam|in.cram> "
+                         "--graph <pkg> --out <out.bam>")
+    from .graph.package import GraphPackage
+    from .io.fasta import read_fasta
+    from .tools import remap_and_reduce
+    cram_ref = read_fasta(args.ref) if args.ref else None
+    n_pairs, n_un = remap_and_reduce(args.BAM, GraphPackage(args.graph),
+                                     args.out, cram_reference=cram_ref,
+                                     device=args.device)
+    print(f"remapAndReduce: {n_pairs} pairs + {n_un} unpaired reads "
+          f"remapped to PRG coordinates -> {args.out}")
+    return 0
+
+
+def action_downsample_bam(args) -> int:
+    """Downsample a BAM by pair fraction (downsampleBAM.pl) or to a
+    gigabase depth target (downsample_WGS_BAMs.pl)."""
+    if not args.BAM or not args.out:
+        raise SystemExit("downsampleBAM needs --BAM <in.bam> --out <path> "
+                         "and --fraction or --targetGigabases")
+    if (args.fraction is None) == (args.targetGigabases is None):
+        raise SystemExit("downsampleBAM needs exactly one of --fraction / "
+                         "--targetGigabases")
+    if args.fraction is not None:
+        from .tools import downsample_bam
+        kept, total = downsample_bam(args.BAM, args.out, args.fraction,
+                                     seed=args.seed)
+        print(f"downsampleBAM: kept {kept}/{total} records -> {args.out}")
+    else:
+        from .tools import downsample_wgs_bams
+        res = downsample_wgs_bams([args.BAM], args.out,
+                                  args.targetGigabases, seed=args.seed)
+        _, dst, frac, kept, total = res[0]
+        print(f"downsampleBAM: fraction {frac:.4f}, kept {kept}/{total} "
+              f"records -> {dst}")
+    return 0
+
+
+ACTIONS = {"HLA": action_hla, "prepareGraph": action_prepare_graph,
+           "testBinary": action_test_binary, "simulate": action_simulate,
+           "testPRGMapping": action_test_prg_mapping,
+           "testPRGMappingUnpaired": action_test_prg_mapping_unpaired,
+           "simulateFromNormalGenome": action_simulate_from_genome,
+           "TestHLATyping": action_test_hla_typing,
+           "checkSequencePresence": action_check_presence,
+           "ASM": action_asm, "KIR": action_kir, "validate": action_validate,
+           "extractkMerCounts": action_extract_kmer_counts,
            "KIRsimulation": action_kir_simulation,
            "buildKIRpanel": action_build_kir_panel,
-           "checkKIRgraph": action_check_kir_graph}
+           "globalAlignment": action_global_alignment,
+           "graphFromMFA": action_graph_from_mfa,
+           "findKIRinBAM": action_find_kir_in_bam,
+           "oneSimulationFromPRG": action_simulate,
+           "checkKIRgraph": action_check_kir_graph,
+           "testAlignments2Chains": action_test_alignments2chains,
+           "testChainExtension": action_test_chain_extension,
+           "remapAndReduce": action_remap_and_reduce,
+           "downsampleBAM": action_downsample_bam}

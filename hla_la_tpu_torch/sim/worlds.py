@@ -23,7 +23,13 @@ parameters.
 - ``decoy_world``: reads of the two planted haplotypes mixed with reads of
   a mutated paralog of gene A that lives outside the PRG, and the decoy
   genome FASTA that ``--decoyFasta`` takes (the recipe of the reference's
-  ``tests/test_decoy.py``).
+  ``tests/test_decoy.py``);
+- ``cohort_world``: a cohort of two samples on ``typing_world``'s package
+  for ``--action validate``: S1 is ``typing_world``'s reads, S2 reads of
+  haplotypes 3 and 4 at the same coverage (``second_sample``), each in a
+  BAM (``world_bam`` writes a world's reads into one, with a matching
+  knownReferences spec in the package); its truth table holds the planted
+  alleles except one deliberately wrong allele of S2 at locus B.
 
   world = long_read_world("build/worlds")
   cli.main(["--action", "HLA", *world.cli_args(), "--graph", world.graph])
@@ -42,7 +48,7 @@ from ..graph.package import GraphPackage
 from ..io.bam import (FLAG_PAIRED, FLAG_READ1, FLAG_READ2, FLAG_REVERSE,
                       BamRecord, BamWriter)
 from ..io.fasta import write_fasta
-from ..io.fastq import write_fastq
+from ..io.fastq import read_fastq, write_fastq
 from ..models.kir_package import build_kir_package
 from .graph_sim import simulate_prg_package
 from .read_sim import ReadSimulator, revcomp
@@ -55,6 +61,13 @@ IMGT_ALLELES = 2200
 IMGT_COVERAGE = 1250.0
 IMGT_SEED = 161803
 TRUTH_HAPS = (1, 2)
+
+# the cohort world: S2's haplotypes, the locus at which its truth table
+# names a wrong allele, and the one contig of every world's BAM (a
+# knownReferences spec in the package extracts all of it)
+SECOND_SAMPLE_HAPS = (3, 4)
+WRONG_LOCUS = "B"
+BAM_CONTIG = ("chr6", 100000)
 
 # the long-read world: each gene spans 0.045 of a 24,000-column backbone,
 # 1,080 columns like a ~3.5 kb class-I gene, so J = 540 typed columns as in
@@ -116,6 +129,28 @@ class TypingWorld:
 
     def cli_args(self) -> list[str]:
         return ["--FASTQ1", self.fastq1, "--FASTQ2", self.fastq2]
+
+
+@dataclasses.dataclass(frozen=True)
+class CohortSample:
+    sample_id: str
+    bam: str
+    truth: dict[str, list[str]]         # locus -> planted alleles
+
+
+@dataclasses.dataclass(frozen=True)
+class CohortWorld:
+    graph: str                          # graph package directory
+    sheet: str                          # the --validationBAMs sample sheet
+    true_hla: str                       # truth table for --trueHLA
+    samples: tuple[CohortSample, ...]
+    wrong: tuple[str, str, str]         # (sample, locus, allele) named in
+    #                                     the truth table in place of a
+    #                                     planted allele
+
+    def cli_args(self) -> list[str]:
+        return ["--validationBAMs", self.sheet, "--trueHLA", self.true_hla,
+                "--graph", self.graph]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,18 +226,73 @@ def _cached(root: str, make_world, build):
     return make_world(truth)
 
 
+def _panel_sim(rng, backbone: int, genes: dict, n_alleles: int):
+    """A panel of 8 haplotypes with `genes`; the first alleles of each
+    locus are the panel haplotypes' exons.  The panel is the first thing
+    drawn from `rng`, so one seed gives one panel."""
+    return simulate_prg_package(rng, backbone_length=backbone,
+                                n_haplotypes=8, snp_rate=0.01, genes=genes,
+                                n_gene_alleles=n_alleles,
+                                allele_snp_rate=0.02)
+
+
+def _planted(sim, haps) -> dict[str, list[str]]:
+    """Locus -> the alleles of haplotypes `haps`."""
+    return {locus: [list(alleles)[h] for h in haps]
+            for locus, alleles in sim.gene_alleles.items()}
+
+
 def _panel(rng, backbone: int, genes: dict, n_alleles: int, graph: str):
-    """A panel of 8 haplotypes with `genes`, written to `graph`, and its
-    truth: the first alleles of each locus are the panel haplotypes'
-    exons."""
-    sim = simulate_prg_package(rng, backbone_length=backbone, n_haplotypes=8,
-                               snp_rate=0.01, genes=genes,
-                               n_gene_alleles=n_alleles,
-                               allele_snp_rate=0.02)
+    """_panel_sim's panel, written to `graph`, and its truth: the alleles
+    of haplotypes TRUTH_HAPS."""
+    sim = _panel_sim(rng, backbone, genes, n_alleles)
     sim.write_package(graph)
-    truth = {locus: [list(sim.gene_alleles[locus])[h] for h in TRUTH_HAPS]
-             for locus in genes}
-    return sim, truth
+    return sim, _planted(sim, TRUTH_HAPS)
+
+
+def _gene_window_pairs(rng, sim, genes: dict, haps, coverage: float):
+    """Paired 100 bp reads at `coverage` per haplotype of `haps` over each
+    gene window (+-300 columns)."""
+    rs = ReadSimulator(rng, read_length=100, fragment_mean=300,
+                       fragment_sd=25, with_error=True)
+    windows = []
+    for locus in genes:
+        cols = [i for i, n in enumerate(sim.column_names)
+                if f"_gene_{locus}_" in n]
+        windows.append((min(cols) - 300, max(cols) + 300))
+    pairs = []
+    for h in haps:
+        seq, levels = sim.linearized(h)
+        for gi, (lo, hi) in enumerate(windows):
+            sel = np.nonzero((levels >= lo) & (levels <= hi))[0]
+            pairs += rs.simulate_pairs_from_string(
+                seq[sel[0]:sel[-1] + 1], levels[sel[0]:sel[-1] + 1],
+                coverage, name_prefix=f"h{h}g{gi}")
+    return pairs
+
+
+def _write_bam(path: str, pairs) -> None:
+    """FASTQ read pairs as mate records on BAM_CONTIG, written to a
+    temporary file that is then renamed to `path`."""
+    writer = BamWriter(path + ".part", [BAM_CONTIG])
+    for r1, r2 in pairs:
+        for mate, r in ((FLAG_READ1, r1), (FLAG_READ2, r2)):
+            writer.write(BamRecord(name=r.name, flag=FLAG_PAIRED | mate,
+                                   ref_id=0, pos=0, mapq=60,
+                                   cigar=[(len(r.seq), 0)], seq=r.seq,
+                                   qual=r.qual))
+    writer.close()
+    os.replace(path + ".part", path)
+
+
+def _write_bam_spec(graph: str) -> None:
+    """The knownReferences spec that matches every world's BAM: all of
+    BAM_CONTIG is extracted."""
+    path = os.path.join(graph, "knownReferences", "worlds_bam.txt")
+    with open(path, "w") as fh:
+        fh.write("contigID\tcontigLength\tExtractCompleteContig\t"
+                 "PartialExtraction_Start\tPartialExtraction_Stop\n")
+        fh.write(f"{BAM_CONTIG[0]}\t{BAM_CONTIG[1]}\t1\t\t\n")
 
 
 def typing_world(out_dir: str, n_alleles: int = IMGT_ALLELES,
@@ -223,21 +313,7 @@ def typing_world(out_dir: str, n_alleles: int = IMGT_ALLELES,
     def build(world):
         rng = np.random.default_rng(IMGT_SEED)
         sim, truth = _panel(rng, backbone, genes, n_alleles, world.graph)
-        rs = ReadSimulator(rng, read_length=100, fragment_mean=300,
-                           fragment_sd=25, with_error=True)
-        windows = []
-        for locus in genes:
-            cols = [i for i, n in enumerate(sim.column_names)
-                    if f"_gene_{locus}_" in n]
-            windows.append((min(cols) - 300, max(cols) + 300))
-        pairs = []
-        for h in TRUTH_HAPS:
-            seq, levels = sim.linearized(h)
-            for gi, (lo, hi) in enumerate(windows):
-                sel = np.nonzero((levels >= lo) & (levels <= hi))[0]
-                pairs += rs.simulate_pairs_from_string(
-                    seq[sel[0]:sel[-1] + 1], levels[sel[0]:sel[-1] + 1],
-                    coverage, name_prefix=f"h{h}g{gi}")
+        pairs = _gene_window_pairs(rng, sim, genes, TRUTH_HAPS, coverage)
         write_fastq(world.fastq1, [p.r1.to_fastq() for p in pairs])
         write_fastq(world.fastq2, [p.r2.to_fastq() for p in pairs])
         return truth, {"seed": IMGT_SEED, "backbone": backbone,
@@ -245,6 +321,88 @@ def typing_world(out_dir: str, n_alleles: int = IMGT_ALLELES,
                        "pairs": len(pairs)}
 
     return _cached(root, make_world, build)
+
+
+def world_bam(world: TypingWorld) -> str:
+    """`world`'s read pairs in a BAM beside its FASTQ files (written once),
+    and the knownReferences spec that matches it in the world's package."""
+    path = os.path.join(os.path.dirname(world.fastq1), "reads.bam")
+    if not os.path.exists(path):
+        _write_bam(path, zip(read_fastq(world.fastq1),
+                             read_fastq(world.fastq2)))
+    _write_bam_spec(world.graph)
+    return path
+
+
+def second_sample(out_dir: str, n_alleles: int = IMGT_ALLELES,
+                  coverage: float = IMGT_COVERAGE,
+                  backbone: int = IMGT_BACKBONE) -> CohortSample:
+    """Build (or reuse from `out_dir`) a second sample for the package of
+    typing_world(out_dir, n_alleles, coverage, backbone): the same panel,
+    drawn again from IMGT_SEED and not written, and reads of haplotypes
+    SECOND_SAMPLE_HAPS drawn as typing_world draws those of TRUTH_HAPS, in
+    a BAM.  Its truth also holds, under "wrong", the first allele of
+    WRONG_LOCUS that neither planted allele matches at two fields and
+    whose exons differ from theirs (so that no call can hold it)."""
+    from ..utils.nomenclature import allele_list_compatible
+    root = os.path.join(out_dir, f"b{backbone}_a{n_alleles}_c{coverage:g}_"
+                                 f"h{''.join(map(str, SECOND_SAMPLE_HAPS))}")
+
+    def make_world(truth):
+        return CohortSample(sample_id="S2", bam=os.path.join(root, "S2.bam"),
+                            truth=truth)
+
+    def build(world):
+        rng = np.random.default_rng(IMGT_SEED)
+        sim = _panel_sim(rng, backbone, IMGT_GENES, n_alleles)
+        pairs = _gene_window_pairs(rng, sim, IMGT_GENES, SECOND_SAMPLE_HAPS,
+                                   coverage)
+        _write_bam(world.bam, [(p.r1.to_fastq(), p.r2.to_fastq())
+                               for p in pairs])
+        truth = _planted(sim, SECOND_SAMPLE_HAPS)
+        alleles = sim.gene_alleles[WRONG_LOCUS]
+        truth["wrong"] = next(
+            a for a, seq in alleles.items()
+            if not any(allele_list_compatible(a, p, 2)
+                       or seq == alleles[p] for p in truth[WRONG_LOCUS]))
+        return truth, {"seed": IMGT_SEED, "haplotypes":
+                       list(SECOND_SAMPLE_HAPS), "pairs": len(pairs)}
+
+    return _cached(root, make_world, build)
+
+
+def cohort_world(out_dir: str, n_alleles: int = IMGT_ALLELES,
+                 coverage: float = IMGT_COVERAGE,
+                 backbone: int = IMGT_BACKBONE) -> CohortWorld:
+    """typing_world's package with two samples, S1 (typing_world's reads,
+    through world_bam) and S2 (second_sample), a sample sheet and a truth
+    table that names second_sample's "wrong" allele in place of S2's
+    second planted allele at WRONG_LOCUS."""
+    typing = typing_world(out_dir, n_alleles, coverage, backbone)
+    s1 = CohortSample("S1", world_bam(typing), typing.truth)
+    s2 = second_sample(out_dir, n_alleles, coverage, backbone)
+    wrong = s2.truth["wrong"]
+    s2 = dataclasses.replace(s2, truth={
+        lc: a for lc, a in s2.truth.items() if lc != "wrong"})
+    root = os.path.join(out_dir, f"cohort_b{backbone}_a{n_alleles}_"
+                                 f"c{coverage:g}")
+    os.makedirs(root, exist_ok=True)
+    world = CohortWorld(graph=typing.graph,
+                        sheet=os.path.join(root, "validationBAMs.txt"),
+                        true_hla=os.path.join(root, "trueHLA.txt"),
+                        samples=(s1, s2), wrong=("S2", WRONG_LOCUS, wrong))
+    loci = sorted(typing.truth)
+    with open(world.sheet, "w") as fh:
+        fh.writelines(f"{s.sample_id}\t{s.bam}\n" for s in world.samples)
+    with open(world.true_hla, "w") as fh:
+        fh.write("IndividualID\t" + "\t".join(
+            lc for lc in loci for _ in range(2)) + "\n")
+        for s in world.samples:
+            row = [a for lc in loci for a in s.truth[lc]]
+            if s.sample_id == "S2":
+                row[2 * loci.index(WRONG_LOCUS) + 1] = wrong
+            fh.write(s.sample_id + "\t" + "\t".join(row) + "\n")
+    return world
 
 
 def ambiguous_world(out_dir: str) -> TypingWorld:

@@ -1,7 +1,8 @@
 """The ``--action HLA`` flags of the port's CLI against the reference CLI on
 the CPU, one test per flag: the paralog defence (``--decoyFasta``,
 ``--mapAgainstCompleteGenome``), ``--trueHLA`` concordance,
-``--keepExtractedFastq``, ``--extractExonkMerCounts`` (refused, loudly), and
+``--keepExtractedFastq``, ``--extractExonkMerCounts`` (the reference's
+k-mer counts; refused, loudly, where the reference refuses it), and
 a world with a planted ambiguity, where the Q1/Q2 bar of 1e-3 binds."""
 
 import os
@@ -123,17 +124,23 @@ def test_cli_keeps_the_extracted_fastq(decoy, tmp_path):
     assert _read(str(tmp_path / "port" / "R_1.fastq")) == _read(world.fastq1)
 
 
-def test_cli_refuses_exon_kmer_counts_loudly(decoy, tmp_path):
-    """--extractExonkMerCounts parses, and exits non-zero before any work
-    with a message that names what the package lacks; on sharded and on
-    long-read runs it keeps the reference's own refusals."""
+def test_cli_refuses_exon_kmer_counts_loudly(decoy, tmp_path, capsys):
+    """--extractExonkMerCounts 1 writes the reference CLI's kMerCounts.txt
+    byte for byte beside the typing outputs; on sharded and on long-read
+    runs both CLIs refuse it, loudly and with the same message, before any
+    work."""
     world = decoy
-    with pytest.raises(SystemExit) as exc:
-        _hla(port_main, world, str(tmp_path / "a"),
-             "--extractExonkMerCounts", "1")
-    assert exc.value.code not in (0, None)
-    assert "tools.extract_kmer_counts" in str(exc.value.code)
-    assert not os.path.exists(tmp_path / "a" / "hla")
+    printed = {}
+    for tag, main in (("port", port_main), ("ref", ref_main)):
+        assert _hla(main, world, str(tmp_path / tag),
+                    "--extractExonkMerCounts", "1") == 0
+        printed[tag] = [line.replace(str(tmp_path / tag), "OUT")
+                        for line in capsys.readouterr().out.splitlines()
+                        if line.startswith("wrote ")]
+    got = _read(str(tmp_path / "port" / "kMerCounts.txt"))
+    assert got == _read(str(tmp_path / "ref" / "kMerCounts.txt"))
+    assert got.startswith(b"Exon\tkMer\tCount\n") and got.count(b"\n") > 100
+    assert printed["port"] == printed["ref"] and len(printed["port"]) == 1
     refusals = []
     for main in (port_main, ref_main):
         for extra in (["--nHosts", "2"], ["--mergeShards", str(tmp_path)],
@@ -144,6 +151,7 @@ def test_cli_refuses_exon_kmer_counts_loudly(decoy, tmp_path):
             refusals.append(str(exc.value.code))
     assert refusals[:3] == refusals[3:]
     assert "sharded" in refusals[0] and "short-read" in refusals[2]
+    assert not os.path.exists(tmp_path / "b" / "hla")
 
 
 def test_ambiguous_world_matches_the_reference(tmp_path):

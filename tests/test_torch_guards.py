@@ -83,12 +83,15 @@ _BLOCKED_SLICE = textwrap.dedent("""
     import numpy as np
     import torch
     torch.set_num_threads(1)
+    from hla_la_tpu_torch import gpu_check
     from hla_la_tpu_torch.cli import main
-    from hla_la_tpu_torch.io.bam import (BamRecord, BamWriter, FLAG_PAIRED,
-                                         FLAG_READ1, FLAG_READ2)
+    from hla_la_tpu_torch.io.bam import (BamReader, BamRecord, BamWriter,
+                                         FLAG_PAIRED, FLAG_READ1, FLAG_READ2)
     from hla_la_tpu_torch.io.fastq import write_fastq
     from hla_la_tpu_torch.models.pipeline import run_hla_typing
-    from hla_la_tpu_torch.sim import ReadSimulator, simulate_prg_package
+    from hla_la_tpu_torch.sim import (ReadSimulator, cohort_world,
+                                      simulate_prg_package)
+    from hla_la_tpu_torch.tools import downsample_bam
     from hla_la_tpu_torch.utils.config import RunConfig
     rng = np.random.default_rng(31)
     sim = simulate_prg_package(rng, backbone_length=1200, n_haplotypes=4)
@@ -171,6 +174,34 @@ _BLOCKED_SLICE = textwrap.dedent("""
                      "--device", "cpu"]) == 0
         with open(td + "/asm/summary.txt") as fh:
             asm_rows = fh.read().splitlines()[1:]
+        # a two-sample cohort through --action validate, the same world's
+        # BAM through remapAndReduce and its FASTQ through extractkMerCounts
+        cohort = cohort_world(td + "/worlds", n_alleles=12, coverage=6.0,
+                              backbone=1800)
+        main(["--action", "validate", *cohort.cli_args(), "--workingDir",
+              td + "/val", "--device", "cpu"])
+        main(["--action", "remapAndReduce", "--BAM", cohort.samples[0].bam,
+              "--graph", cohort.graph, "--out", td + "/prg.bam", "--device",
+              "cpu"])
+        fq = os.path.dirname(cohort.graph)
+        main(["--action", "extractkMerCounts", "--graph", cohort.graph,
+              "--FASTQ1", fq + "/R_1.fq", "--FASTQ2", fq + "/R_2.fq",
+              "--outputDirectory", td + "/kmers", "--device", "cpu"])
+        with open(td + "/kmers/kMerCounts.txt") as fh:
+            n_kmers = sum(1 for _ in fh) - 1
+        remapped = list(BamReader(td + "/prg.bam"))
+        # the port's downsampler in a process of its own (PYTHONHASHSEED
+        # is random here): the kept names are the test process's
+        w = BamWriter(td + "/ds.bam", [("c", 1000)])
+        for i in range(50):
+            w.write(BamRecord(name=f"r{i}", flag=0, ref_id=0, pos=i,
+                              mapq=60, cigar=[(4, 0)], seq="ACGT",
+                              qual="IIII"))
+        w.close()
+        downsample_bam(td + "/ds.bam", td + "/ds_out.bam", 0.5, seed=7)
+        kept = [r.name for r in BamReader(td + "/ds_out.bam")]
+        # no card: the probe refuses, and never runs the plain version
+        no_card = gpu_check.run()
         tables = []
         for d in ("cli_fq", "cli_bam", "cli_merged"):
             with open(os.path.join(td, d, "hla", "R1_bestguess.txt")) as fh:
@@ -184,25 +215,44 @@ _BLOCKED_SLICE = textwrap.dedent("""
     assert kir_call == ["ALT0", "ALT2"], kir_call
     assert len(asm_rows) == 2 and all(
         r.split("\\t")[4] == "0" for r in asm_rows), asm_rows
+    assert n_kmers > 100 and len(remapped) > 100 and no_card == 1
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "hla_la_tpu")]
     assert sorted(loaded) == ["hla_la_tpu", "jax"], loaded
     assert sys.modules["jax"] is None and sys.modules["hla_la_tpu"] is None
     print("SLICE_OK", len(res.results))
+    print("DOWNSAMPLE_KEPT", ",".join(kept))
 """)
 
 
-def test_cpu_slice_runs_with_jax_blocked():
+def test_cpu_slice_runs_with_jax_blocked(capsys, tmp_path):
     """Short reads, long reads, the CLI on FASTQ, on a BAM and through
-    align shards and their merge, and --action KIR and --action ASM, with
-    jax and the JAX package both blocked."""
+    align shards and their merge, --action KIR and --action ASM, and a
+    two-sample --action validate, remapAndReduce and extractkMerCounts,
+    with jax and the JAX package both blocked; there the GPU probe refuses
+    without a card (and its plain version is never run), and the port's
+    downsampler keeps the names it keeps in this process."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONHASHSEED"] = "random"
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_SLICE], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "SLICE_OK" in proc.stdout
+    assert "no CUDA device" in proc.stderr
+    from hla_la_tpu_torch.io.bam import BamReader, BamRecord, BamWriter
+    from hla_la_tpu_torch.tools import downsample_bam
+    w = BamWriter(str(tmp_path / "ds.bam"), [("c", 1000)])
+    for i in range(50):
+        w.write(BamRecord(name=f"r{i}", flag=0, ref_id=0, pos=i, mapq=60,
+                          cigar=[(4, 0)], seq="ACGT", qual="IIII"))
+    w.close()
+    downsample_bam(str(tmp_path / "ds.bam"), str(tmp_path / "out.bam"), 0.5,
+                   seed=7)
+    kept = [r.name for r in BamReader(str(tmp_path / "out.bam"))]
+    assert f"DOWNSAMPLE_KEPT {','.join(kept)}\n" in proc.stdout
+    assert 5 < len(kept) < 45
 
 
 # Modules copied from the reference as they stand.  Each is held to the
@@ -212,7 +262,8 @@ def test_cpu_slice_runs_with_jax_blocked():
 COPIED_MODULES = """
 utils/__init__ utils/config utils/timing utils/phred utils/nomenclature
 io/__init__ io/fastq io/fasta io/bam io/cram io/rans io/rans_nx16 io/arith
-io/tok3 io/fqzcomp native graph/__init__ graph/prg graph/package
+io/tok3 io/fqzcomp io/cram_write native graph/__init__ graph/prg
+graph/package
 graph/compile mapping/__init__ mapping/kmer_index mapping/seeder
 mapping/global_align mapping/decoy ops/graph_dp models/alignment
 models/graph_fallback models/kir_package sim/graph_sim sim/read_sim sim/truth
@@ -367,9 +418,20 @@ REWRITTEN_UNITS = {
     # the device seam: the two places that score through the NW forward
     "models/asm": {"AssemblyTyper.__init__", "AssemblyTyper._exon_distances",
                    "AssemblyTyper._verify_located_candidate"},
+    # the device seam of every action that aligns or types, and the
+    # refusal of the HLA action's process options in validate
     "cli": {"_regions_from_spec", "_require_graph", "_split_long_reads",
             "action_hla", "main", "action_asm", "action_kir",
-            "action_kir_simulation", "action_build_kir_panel"},
+            "action_kir_simulation", "action_build_kir_panel",
+            "action_validate", "action_test_prg_mapping",
+            "action_test_prg_mapping_unpaired", "action_test_hla_typing",
+            "action_test_alignments2chains", "action_test_chain_extension",
+            "action_remap_and_reduce", "action_extract_kmer_counts",
+            "_write_exon_kmer_counts"},
+    # the aligner on a device, and its statistics logged
+    "tools": {"remap_and_reduce"},
+    # the device of the typing run and of the pileup analysis's typer
+    "validation": {"validate_cohort", "pileup_error_analysis"},
 }
 
 
@@ -468,6 +530,21 @@ def test_cuda_tensors_never_reach_a_plain_version(monkeypatch):
         port_nw._forward(_fake("meta"), None, None, {})
 
 
+def test_gpu_check_refuses_without_a_card(monkeypatch, capsys):
+    """No CUDA device: the probe exits 1 with a message, and neither the
+    kernel nor its plain version runs in its place."""
+    from hla_la_tpu_torch import gpu_check
+
+    def never(*args, **kwargs):
+        raise AssertionError("the probe ran NW without a card")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(gpu_check, "banded_nw_plain", never)
+    monkeypatch.setattr(gpu_check, "banded_nw_cuda", never)
+    assert gpu_check.run() == 1
+    assert gpu_check.run(L=77, W=31, B=4096, cpu=True) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
 def test_tensor_on_another_device_is_refused():
     with pytest.raises(ValueError, match="expected"):
         port_device.to_device(SimpleNamespace(device=torch.device("cuda")),
@@ -558,6 +635,7 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
 
 # what runs on the device, or decides that it does
 DEVICE_PATH_FILES = ["_build.py", "device.py", "cli.py", "profile_e2e.py",
+                     "gpu_check.py",
                      "ops/banded_nw.py", "ops/pair_ll.py", "ops/cuda_nw.py",
                      "ops/cuda_nw_long.py", "ops/cuda_pair.py",
                      "models/pipeline.py", "models/linear_alts.py",
@@ -573,7 +651,8 @@ DEVICE_CALLS = {"banded_nw_forward_torch", "banded_nw_cuda",
                 "align_shard", "merge_shards_and_type", "_type_and_write",
                 "_type_loci_parallel", "_typing_worker", "ParallelAligner",
                 "ShardedNW", "pair_ll_reduction_sharded",
-                "sharded_typing_step", "sharded_align_step", "full_step"}
+                "sharded_typing_step", "sharded_align_step", "full_step",
+                "validate_cohort", "remap_and_reduce", "check"}
 # KmerIndex.build makes the host's k-mer index; it is no kernel build
 HOST_INDEX_CLASSES = {"KmerIndex"}
 

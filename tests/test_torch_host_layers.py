@@ -1,6 +1,6 @@
 """The port's own copies of the host layers against the reference's, on the
 same inputs made from numpy seeds: simulators, utils, FASTA/FASTQ, BAM and
-CRAM readers, the native binding, graph package, k-mer index and seeder,
+CRAM readers, the CRAM writer, the native binding, graph package, k-mer index and seeder,
 global alignment and decoy index, the numpy NW forward and backtrace,
 projection and scoring, the host half of the likelihood model, and the whole
 CLI on FASTQ, BAM, CRAM and long-read input (calls equal, Q within 1e-6,
@@ -9,6 +9,7 @@ likelihoods come from different float32 reductions)."""
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import pytest
@@ -41,6 +42,7 @@ from hla_la_tpu_torch.cli import main as port_main
 from hla_la_tpu_torch.graph.package import GraphPackage as PortPackage
 from hla_la_tpu_torch.io import bam as port_bam
 from hla_la_tpu_torch.io import cram as port_cram
+from hla_la_tpu_torch.io.cram_write import write_cram as port_write_cram
 from hla_la_tpu_torch.io import fasta as port_fasta
 from hla_la_tpu_torch.io import fastq as port_fastq
 from hla_la_tpu_torch.mapping import decoy as port_decoy
@@ -251,14 +253,20 @@ def test_bam_reader_and_writer_agree(world, tmp_path, use_native):
                 ref_bam.bam_to_fastq_pairs(w_by), "fastq pairs")
 
 
-@pytest.mark.parametrize("codecs", [
+CRAM_CODECS = [
     {"method": ref_cram.M_GZIP},
     {"method": ref_cram.M_RANS4x8},
     {"method": ref_cram.M_RANSNx16},
     {"method": ref_cram.M_ARITH},
     {"method": ref_cram.M_RANSNx16, "qual_method": ref_cram.M_FQZ,
-     "name_method": ref_cram.M_TOK3}], ids=lambda c: "-".join(
-         str(v) for v in c.values()))
+     "name_method": ref_cram.M_TOK3}]
+
+
+def _codec_id(codecs):
+    return "-".join(str(v) for v in codecs.values())
+
+
+@pytest.mark.parametrize("codecs", CRAM_CODECS, ids=_codec_id)
 def test_cram_reader_agrees(world, tmp_path, codecs):
     """One CRAM, written by the reference's writer with each block codec
     (gzip, rANS 4x8, rANS Nx16, the adaptive arithmetic coder, fqzcomp and
@@ -281,6 +289,31 @@ def test_cram_reader_agrees(world, tmp_path, codecs):
     w_by, _ = ref_bam.extract_reads(path, [("chr6", 0, 0)],
                                     cram_reference=genome)
     _same_value(g_by, w_by, "by_name")
+
+
+@pytest.mark.parametrize("codecs",
+                         CRAM_CODECS + [{"method": ref_cram.M_RAW,
+                                         "embed_reference": True}],
+                         ids=_codec_id)
+def test_cram_writer_agrees(world, tmp_path, monkeypatch, codecs):
+    """The port's copy of the CRAM writer and the reference's write the
+    same bytes from the same records, with each block codec (and raw
+    blocks with the reference embedded).  The clock is held still: a gzip
+    block's header carries the time it was written."""
+    monkeypatch.setattr(time, "time", lambda: 1.7e9)
+    _, _, _, pairs = world
+    rng = np.random.default_rng(13)
+    genome = {"chr6": "".join(rng.choice(list("ACGT"), CONTIG_LEN))}
+    records = _records(pairs[:80])
+    paths = {tag: str(tmp_path / f"{tag}.cram") for tag in ("port", "ref")}
+    port_write_cram(paths["port"], [("chr6", CONTIG_LEN)], records, genome,
+                    per_slice=50, **codecs)
+    write_cram(paths["ref"], [("chr6", CONTIG_LEN)], records, genome,
+               per_slice=50, **codecs)
+    data = _read(paths["port"])
+    assert data == _read(paths["ref"]) and len(data) > 1000
+    assert len(list(port_cram.CramReader(paths["port"],
+                                         reference=genome))) == 160
 
 
 # ------------------------------------------------------------------ graph

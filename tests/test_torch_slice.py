@@ -367,5 +367,8 @@ def test_profile_summary_counts_device_events_only():
 
 
 def test_cli_refuses_unported_action(capsys):
-    assert port_main(["--action", "findKIRinBAM"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    """Every action of the reference is ported: an action neither CLI
+    knows exits 2 with the reference's message."""
+    for main in (port_main, ref_main):
+        assert main(["--action", "findKIRinBAMs"]) == 2
+        assert capsys.readouterr().err == "unknown action findKIRinBAMs\n"
