@@ -46,6 +46,8 @@ and (t) run before (e), while the IMGT-scale world is still being built;
       multiple of the cells per lane, two jobs per warp), 838 x 10,000 x 256
       (the most jobs one NW call of phase (h) holds under the aligner's
       pointer budget) and 8,192 x 1,100 x 256 (pointer offsets past 2^31);
+      and, in a process of its own while (f), (i) and (t) run, 32 x 50,000
+      x 256 (a split long read's 50 kb chunk, as (y) has them);
   (h) end to end on long reads: a two-locus world with class-I-sized genes
       (2,200 alleles per locus) and unpaired 10 kb ONT-like reads at 30x,
       typed by the port's CLI (``--longReads ont2d --FASTQU ... --device
@@ -126,11 +128,40 @@ and (t) run before (e), while the IMGT-scale world is still being built;
       and files (BAMs as records, pair dumps and bestguess tables with Q
       within 1e-3, the rest byte for byte); the five aligning self-tests
       print OK on cuda and launch K1.
+  (u) the twin of __graft_entry__.entry (``hla_la_tpu_torch.graft_entry``)
+      on cuda against the CPU: NW scores bit-identical, the pair matrix
+      within rtol 1e-6 / atol 1e-2, the marginal within 1e-4; K1 and K3
+      launched;
+  (v) ``graft_entry.dryrun_multichip(2, "cuda")``: two gloo ranks on the
+      card, the sharded kernel step, the typing step against the host
+      formula and the miniature world typed on both ranks with the calls of
+      one;
+  (w) bench.py's real-PRG-scale world (``sim.bench_world``: 3,000,000
+      levels, genes A and B, ~30k pairs) through bench_torch.py's objects,
+      one align pass and one type pass: truth accuracy over 0.95, the calls
+      exactly the planted alleles, K1 launched in the workers, K3 in this
+      process (two loci: under the typing fan-out's gate), every NW job on
+      the card; then K1 at the workers' call shape against its plain
+      version;
+  (x) stress_wgs.py's world with all 17 loci (``sim.wgs_world``) at a cut
+      coverage of WGS_SMOKE_COVERAGE (3,000,000 levels and 17 loci kept;
+      ~60k pairs, over the typing fan-out's gate of 50,000 aligned reads;
+      stress_wgs_torch.py carries the full 12x): typed serially and with the
+      fan-out, byte-identical, exact at every locus, K1 launched in the
+      align workers and K3 in the typing workers; then K1 at the workers'
+      call shape and K3 at the largest locus's C x R;
+  (y) stress_long.py's reads of the bench panel (``sim.long_bench_reads``:
+      ~15 Mb of 2-48 kb reads and 60-90 kb reads cut at 50 kb) typed
+      through run_hla_typing in long-read mode with 4 workers: the planted
+      alleles called, truth accuracy over 0.9, every NW job on the card, K2
+      launched in the workers; then K3 at the largest locus's C x R.
+  The three real-scale worlds are built in processes of their own from the
+  start, beside the others, and (u)-(y) run last.
 
 The last two lines are the card's name and power limit, and
 {"ok": true, "device": {...}}; the line before them is the kernels' JSON
-record, one entry per kernel and main path (K1 runs on six, K2 on two, K3
-on six), with the
+record, one entry per kernel and main path (K1 runs on nine, K2 on three,
+K3 on ten), with the
 launches of that path's run and the kernel's time beside its bound: the
 larger of its bytes (inputs read once, outputs written once) over the card's
 memory rate and its operations over the card's peak rate for their type.
@@ -194,6 +225,12 @@ EDIT_SCORING = {"match": 0.0, "mismatch": -1.0, "gap_open": -1.0,
 KIR_PAIR_SHAPES = ((32, 22500), (32, 45000), (6, 22500), (6, 45000))
 POSTERIOR_MIN, R2G_MIN = 0.9, 0.9       # the KIR self-test's bars
 SMALL_KIR_WORLD = {"length": 12000, "coverage": 10.0}
+# (x) at a diploid coverage of 4: ~60k pairs, over the fan-out's gate
+WGS_SMOKE_COVERAGE = 4.0
+MARG_ATOL = 1e-4                # graft entry's marginal, cuda vs the CPU
+# (y): K2 at the split long reads' L (a 50 kb chunk) and the long-read band
+SPLIT_NW_SHAPE = (32, 50000, 256)
+SPLIT_RECORD = os.path.join(WORLD_DIR, "runs", "split_check.json")
 
 
 T_START = time.perf_counter()
@@ -221,6 +258,27 @@ def start_world_builds(names=("typing_world", "long_read_world",
              "import sim; " + code, name, WORLD_DIR], cwd=ROOT)
 
 
+def start_real_scale_builds() -> None:
+    """The worlds of (w)-(y), each in a process of its own: bench.py's, the
+    long reads of its panel (with the panel drawn again and its package
+    written beside them), and stress_wgs.py's at a cut coverage."""
+    start_world_builds(("bench_world", "long_bench_reads"))
+    start_world_builds(("wgs_world",), "sim.wgs_world(sys.argv[2], "
+                       f"{WGS_SMOKE_COVERAGE!r})")
+
+
+def start_split_check() -> None:
+    """K2 at the shape of (y) against its plain version, in a process of
+    its own: the plain version's row loop takes one and a half minutes,
+    while the host-bound phases (f), (i) and (t) leave the card nearly
+    idle.  Its record goes to SPLIT_RECORD, which (y) reads."""
+    os.makedirs(os.path.dirname(SPLIT_RECORD), exist_ok=True)
+    _WORLD_BUILDS["split_check"] = subprocess.Popen(
+        [sys.executable, "-c", "import json, sys; import chip_smoke as c; "
+         "r = {}; c.check_nw_long(*c.SPLIT_NW_SHAPE, r); "
+         "json.dump(r, open(sys.argv[1], 'w'))", SPLIT_RECORD], cwd=ROOT)
+
+
 def start_bam_build() -> None:
     """S1's BAM of the cohort of (r): the IMGT-scale world's reads, written
     in a process of its own once that world is built."""
@@ -231,16 +289,18 @@ def start_bam_build() -> None:
 def wait_build(name: str) -> None:
     proc = _WORLD_BUILDS.pop(name, None)
     if proc is not None and proc.wait() != 0:
-        fail(f"building {name} failed (exit code {proc.returncode})")
+        fail(f"{name} failed in its own process (exit code "
+             f"{proc.returncode})")
 
 
-def built_world(name: str):
-    """The full-size world of simulator `name` from the cache, once its
-    build process (if one was started) has ended."""
+def built_world(name: str, make=None):
+    """The full-size world of simulator `name` (or what `make(sim)` returns)
+    from the cache, once its build process (if one was started) has
+    ended."""
     from hla_la_tpu_torch import sim
     t0 = time.perf_counter()
     wait_build(name)
-    world = getattr(sim, name)(WORLD_DIR)
+    world = (make or (lambda s: getattr(s, name)(WORLD_DIR)))(sim)
     print(f"{name} ready after a further {time.perf_counter() - t0:.1f} s")
     return world
 
@@ -330,13 +390,11 @@ def pair_bound(C: int, R: int, max_mhz: float, tile_range=None) -> dict:
 def toolchain() -> str:
     import torch
     from hla_la_tpu_torch import _build
+    from hla_la_tpu_torch.bench_common import card_line
     nvcc = _build.find_nvcc()
     ver = subprocess.run([nvcc, "--version"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_line("cuda")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"torch CUDA {torch.version.cuda}")
     print(f"nvcc {nvcc}: {ver[-1] if ver else '?'}")
@@ -611,20 +669,6 @@ def check_pair(C: int, R: int, record: dict, tile_range=None) -> None:
     if err64:
         record.update(max_abs_err_f64=err64["kernel"],
                       plain_max_abs_err_f64=err64["plain"])
-
-
-class _Tee(io.TextIOBase):
-    def __init__(self, *streams):
-        self.streams = streams
-
-    def write(self, s):
-        for st in self.streams:
-            st.write(s)
-        return len(s)
-
-    def flush(self):
-        for st in self.streams:
-            st.flush()
 
 
 @contextlib.contextmanager
@@ -907,6 +951,10 @@ def kernel_records() -> dict:
     pair = {"name": "pair_ll_diff", "path": short, "route": "cuda",
             "source": "hla_la_tpu_torch/csrc/pair_ll.cu",
             "replaces": "hla_la_tpu/ops/pallas_pair.py:85"}     # and :138
+    entry = "the graft entry's typing step, phase (u)"
+    bench = "bench.py's 3M-level world in 8 workers, phase (w)"
+    wgs = "stress_wgs.py's 17-locus world, typing fan-out, phase (x)"
+    split = "stress_long.py's split long reads in 4 workers, phase (y)"
     cohort = "a cohort of two samples (--action validate), phase (r)"
     remap = "--action remapAndReduce, phase (s)"
     workers = "short reads in 4 worker processes, phase (p)"
@@ -921,7 +969,15 @@ def kernel_records() -> dict:
             "pair_sharded": {**pair, "path": ranks},
             "nw_cohort": {**nw, "path": cohort},
             "pair_cohort": {**pair, "path": cohort},
-            "nw_remap": {**nw, "path": remap}}
+            "nw_remap": {**nw, "path": remap},
+            "nw_entry": {**nw, "path": entry},
+            "pair_entry": {**pair, "path": entry},
+            "nw_bench": {**nw, "path": bench},
+            "pair_bench": {**pair, "path": bench},
+            "nw_wgs": {**nw, "path": wgs},
+            "pair_wgs": {**pair, "path": wgs},
+            "nw_split": {**nw_long, "path": split},
+            "pair_split": {**pair, "path": split}}
 
 
 def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> dict:
@@ -956,7 +1012,9 @@ def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> dict:
     sync()
 
     # (f), (i) and (t) need small worlds only: they run while the
-    # IMGT-scale world is still being built
+    # IMGT-scale world is still being built, and while K2 is held at the
+    # shape of (y) in a process of its own
+    start_split_check()
     phase("(f) small world: the port's CLI on cuda vs on the CPU")
     small = typing_world(WORLD_DIR, **SMALL_WORLD)
     one_process = {"small": (small, compare_devices(small, "small")["cuda"])}
@@ -1111,6 +1169,7 @@ def run_cli(argv: list, device: str, tag: str) -> dict:
     """The port's CLI on `argv` + ``--device device``; the kernels' launch
     counters are zeroed just before the run and read just after it.
     Returns its wall, launches, printed lines and log."""
+    from hla_la_tpu_torch.bench_common import Tee
     from hla_la_tpu_torch.cli import main as port_main
     from hla_la_tpu_torch.ops.cuda_nw import banded_nw_cuda
     from hla_la_tpu_torch.ops.cuda_nw_long import banded_nw_long_cuda
@@ -1123,7 +1182,7 @@ def run_cli(argv: list, device: str, tag: str) -> dict:
         fn.launches = 0
     t0 = time.perf_counter()
     with captured_stderr(log), \
-            contextlib.redirect_stdout(_Tee(sys.stdout, out)):
+            contextlib.redirect_stdout(Tee(sys.stdout, out)):
         rc = port_main([*argv, "--device", device])
     if device == "cuda":
         sync()
@@ -1574,6 +1633,7 @@ def check_sharded_cli(world, one: dict, n_ranks: int, tag: str) -> dict:
 def worker_phases(one_process: dict, rec: dict) -> None:
     """Phase (p): worker processes and align shards on the one card,
     against the one-process run of (e)."""
+    from hla_la_tpu_torch.bench_common import logged
     from hla_la_tpu_torch.cli import main as port_main
     from hla_la_tpu_torch.graph.package import GraphPackage
     from hla_la_tpu_torch.models.pipeline import (pair_up_fastq,
@@ -1625,7 +1685,7 @@ def worker_phases(one_process: dict, rec: dict) -> None:
     shutil.rmtree(out_dir, ignore_errors=True)
     pair_ll_diff_cuda.launches = 0
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(_Tee(sys.stderr, log)):
+    with logged(log):
         run_hla_typing(
             GraphPackage(world.graph),
             pairs=pair_up_fastq(world.fastq1, world.fastq2),
@@ -1650,7 +1710,7 @@ def worker_phases(one_process: dict, rec: dict) -> None:
     for host in ("0", "1"):
         t0 = time.perf_counter()
         log = io.StringIO()
-        with contextlib.redirect_stderr(_Tee(sys.stderr, log)):
+        with logged(log):
             rc = port_main(["--action", "HLA", *world.cli_args(), "--graph",
                             world.graph, "--sampleID", "S1",
                             "--outputDirectory",
@@ -1666,7 +1726,7 @@ def worker_phases(one_process: dict, rec: dict) -> None:
     merged = os.path.join(runs, "merged")
     shutil.rmtree(merged, ignore_errors=True)
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(_Tee(sys.stderr, io.StringIO())):
+    with logged(io.StringIO()):
         rc = port_main(["--action", "HLA", "--graph", world.graph,
                         "--sampleID", "S1", "--outputDirectory", merged,
                         "--device", "cuda", "--mergeShards", shard_dir])
@@ -1741,6 +1801,146 @@ def sharded_phases(one_process: dict, rec: dict) -> None:
     sync()
 
 
+def graft_entry_phases(rec: dict) -> None:
+    """Phases (u) and (v): the graft entry's typing step on cuda against
+    the CPU, and the many-rank dry run with both ranks on the card."""
+    import numpy as np
+    from hla_la_tpu_torch import graft_entry
+    from hla_la_tpu_torch.bench_common import zero_launches
+    from hla_la_tpu_torch.models.parallel_host import kernel_launches
+
+    phase("(u) the graft entry's typing step: cuda vs the CPU")
+    fn, args = graft_entry.entry("cuda")
+    zero_launches()
+    t0 = time.perf_counter()
+    got = fn(*args)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    got = [t.cpu().numpy() for t in got]
+    fn_cpu, _ = graft_entry.entry("cpu")
+    want = [t.numpy() for t in fn_cpu(*args)]
+    if launches["K1"] <= 0 or launches["K3"] <= 0:
+        fail(f"graft entry on cuda: launches {launches}")
+    if not np.array_equal(got[0], want[0]):
+        fail("graft entry: NW scores differ between cuda and the CPU")
+    pair_err = float(np.abs(got[1] - want[1]).max())
+    marg_err = float(np.abs(got[2] - want[2]).max())
+    if not np.allclose(got[1], want[1], rtol=PAIR_RTOL, atol=PAIR_ATOL):
+        fail(f"graft entry: pair matrix differs by {pair_err:.4g}")
+    if marg_err > MARG_ATOL:
+        fail(f"graft entry: marginal differs by {marg_err:.4g}")
+    s = graft_entry.ENTRY_SHAPES
+    print(f"graft entry (B={s['B']} L={s['L']} W={s['W']}, C={s['C']} "
+          f"R={s['R']} K={s['K']}): scores bit-identical to the CPU, pair "
+          f"max abs err {pair_err:.4g}, marginal {marg_err:.3g}; launches "
+          f"{launches}; {wall * 1e3:.1f} ms with its first launches")
+    rec["nw_entry"]["launches"] = launches["K1"]
+    rec["pair_entry"]["launches"] = launches["K3"]
+    check_nw(s["B"], s["L"], s["W"], rec["nw_entry"])
+    check_pair(s["C"], s["R"], rec["pair_entry"])
+    sync()
+
+    phase("(v) dryrun_multichip(2) with both ranks on the card")
+    t0 = time.perf_counter()
+    try:
+        graft_entry.dryrun_multichip(2, "cuda")
+    except (AssertionError, RuntimeError) as exc:
+        fail(f"dryrun_multichip(2) on cuda: {exc}")
+    print(f"dryrun_multichip(2) on cuda: all three phases passed in "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+
+
+def real_scale_phases(rec: dict) -> None:
+    """Phases (u)-(y): the graft entry, the dry run, and the real-PRG-scale
+    worlds of bench.py, stress_wgs.py and stress_long.py on cuda."""
+    import bench_torch
+    import stress_long_torch
+    import stress_wgs_torch
+
+    graft_entry_phases(rec)
+    n_workers = min(os.cpu_count() or 1, bench_torch.MAX_WORKERS)
+
+    phase("(w) bench.py's 3M-level world: one align and one type pass")
+    world = built_world("bench_world")
+    try:
+        st = bench_torch.bench(world, "cuda", n_workers, (0, 1), (0, 1))
+    except AssertionError as exc:
+        fail(f"bench world: {exc}")
+    lw, lp = st["launches_workers"], st["launches_parent"]
+    if lw["K1"] <= 0 or lp["K3"] + lw["K3"] <= 0:
+        fail(f"bench world: launches in the workers {lw}, here {lp}")
+    print(f"bench world ({world.n_levels} levels, {st['n_reads'] // 2} "
+          f"pairs, {n_workers} workers): align {st['align_s'][0]:.3f} s "
+          f"({st['n_reads'] / st['align_s'][0]:.1f} reads/s), type "
+          f"{st['type_s'][0]:.3f} s; truth accuracy "
+          f"{st['truth_accuracy']:.4f}; calls {st['calls']}; launches in the "
+          f"workers {lw}, here {lp}; all {st['n_chain_extensions']} NW jobs "
+          f"on the card; C x R {st['loci']}")
+    rec["nw_bench"]["launches"] = lw["K1"]
+    rec["pair_bench"]["launches"] = lp["K3"] + lw["K3"]
+    check_nw(round(st["n_chain_extensions"] / lw["K1"]), 101, 32,
+             rec["nw_bench"])
+    C, R = max(st["loci"].values(), key=lambda cr: cr[1])
+    check_pair(C, R, rec["pair_bench"])
+    sync()
+
+    phase(f"(x) stress_wgs.py's world at {WGS_SMOKE_COVERAGE:g}x: serial vs "
+          f"fan-out typing")
+    world = built_world("wgs_world", lambda sim: sim.wgs_world(
+        WORLD_DIR, WGS_SMOKE_COVERAGE))
+    try:
+        st = stress_wgs_torch.stress_wgs(world, "cuda", n_workers, os.path.join(
+            WORLD_DIR, "runs", "wgs"))
+    except AssertionError as exc:
+        fail(f"WGS world: {exc}")
+    print(f"WGS world ({world.n_levels} levels, {len(world.truth)} loci, "
+          f"{st['pairs']} pairs, {st['pairs_aligned']} aligned): align "
+          f"{st['align_s']:.3f} s ({st['reads_per_s']:.1f} reads/s), type "
+          f"serial {st['type_serial_s']:.3f} s, fan-out "
+          f"{st['type_fanout_s']:.3f} s over {st['typing_workers']} workers; "
+          f"{st['files']} files byte-identical; calls exact at every locus; "
+          f"launches here {st['launches_parent']}, in the workers "
+          f"{st['launches_workers']}; C x R {st['loci']}")
+    if st["launches_workers"]["K1"] <= 0:
+        fail(f"WGS world: K1 launches in the workers {st['launches_workers']}")
+    rec["nw_wgs"]["launches"] = st["launches_workers"]["K1"]
+    rec["pair_wgs"]["launches"] = st["launches_workers"]["K3"]
+    check_nw(round(st["n_chain_extensions"] / st["launches_workers"]["K1"]),
+             101, 32, rec["nw_wgs"])
+    C, R = max(st["loci"].values(), key=lambda cr: cr[1])
+    check_pair(C, R, rec["pair_wgs"])
+    sync()
+
+    phase("(y) stress_long.py's reads of the bench panel in 4 workers")
+    wait_build("split_check")
+    with open(SPLIT_RECORD) as fh:
+        rec["nw_split"].update(json.load(fh))
+    reads = built_world("long_bench_reads")
+    try:
+        st = stress_long_torch.stress_long(reads, "cuda", os.path.join(
+            WORLD_DIR, "runs", "long_bench"))
+    except AssertionError as exc:
+        fail(f"long reads of the bench panel: {exc}")
+    if st["align_workers"] != 4 or st["launches_workers"]["K2"] <= 0:
+        fail(f"long reads: {st['align_workers']} align workers, launches "
+             f"{st['launches_workers']}")
+    print(f"long reads of the bench panel: {st['reads']} reads "
+          f"({st['reads_over_split']} over 50 kb) -> {st['chunks']} chunks, "
+          f"{st['mb']:.1f} Mb; whole run {st['wall_s']:.3f} s in 4 workers; "
+          f"truth accuracy {st['truth_accuracy']:.4f}; calls {st['calls']}; "
+          f"K2 launches in the workers {st['launches_workers']['K2']} (here "
+          f"{st['launches_parent']['K2']}), K3 "
+          f"{st['launches_parent']['K3']}; longest NW job L = "
+          f"{st['longest_nw_job_L']}; all {st['n_chain_extensions']} NW jobs "
+          f"on the card")
+    rec["nw_split"]["launches"] = st["launches_workers"]["K2"]
+    rec["pair_split"]["launches"] = st["launches_parent"]["K3"]
+    C, R = max(st["loci"].values(), key=lambda cr: cr[1])
+    check_pair(C, R, rec["pair_split"])
+    sync()
+
+
 def main() -> int:
     try:
         import torch
@@ -1769,16 +1969,18 @@ def main() -> int:
 
     rec = kernel_records()
     start_world_builds()
+    start_real_scale_builds()
     try:
         one_process = hla_phases(rec["nw"], rec["pair"], rec["nw_long"],
                                  rec["pair_long"])
         kir_asm_phases(rec["nw_kir"], rec["pair_kir"], rec["nw_asm"])
         cohort_phases(one_process, rec)
+        flag_phases()
+        worker_phases(one_process, rec)
+        sharded_phases(one_process, rec)
+        real_scale_phases(rec)
     finally:
         stop_world_builds()
-    flag_phases()
-    worker_phases(one_process, rec)
-    sharded_phases(one_process, rec)
 
     print(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(rec.values())}))

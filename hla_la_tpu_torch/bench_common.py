@@ -1,0 +1,98 @@
+"""What the real-scale twins (``bench_torch.py``, ``stress_wgs_torch.py``,
+``stress_long_torch.py``) and the smoke run share: the card's name and
+power limit, process CPU time and peak memory, the kernels built before any
+timed window, the launch counters of this process zeroed, and the run's log
+caught while it is still echoed."""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import re
+import resource
+import subprocess
+import sys
+
+import torch
+
+from .device import resolve
+
+
+def card_line(device) -> str:
+    """The card's name and power limit as nvidia-smi gives them, or "cpu"."""
+    if resolve(device).type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def start(device) -> str:
+    """Resolve `device`, print the card's line (first, on stdout) and build
+    the kernels there, outside every timed window.  Returns the line."""
+    dev = resolve(device)
+    line = card_line(dev)
+    print(line, flush=True)
+    if dev.type == "cuda":
+        from . import _build
+        _build.library()
+    return line
+
+
+def cpu_now() -> float:
+    """Process CPU seconds, self and reaped children (utime + stime): a
+    pool's workers count only once they are reaped, so for a live pool this
+    is the parent's work."""
+    a = resource.getrusage(resource.RUSAGE_SELF)
+    b = resource.getrusage(resource.RUSAGE_CHILDREN)
+    return a.ru_utime + a.ru_stime + b.ru_utime + b.ru_stime
+
+
+def rss_gb() -> float:
+    """Peak resident memory of this process in GB."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def zero_launches() -> None:
+    """Set every kernel wrapper's launch count in this process to 0."""
+    from .ops.cuda_nw import banded_nw_cuda
+    from .ops.cuda_nw_long import banded_nw_long_cuda
+    from .ops.cuda_pair import pair_ll_diff_cuda
+    for fn in (banded_nw_cuda, banded_nw_long_cuda, pair_ll_diff_cuda):
+        fn.launches = 0
+
+
+class Tee(io.TextIOBase):
+    """A text stream that writes to each of `streams`."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for st in self.streams:
+            st.write(s)
+        return len(s)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+@contextlib.contextmanager
+def logged(sink: io.StringIO):
+    """What this process writes to sys.stderr goes into `sink` too (the
+    run's statistics, with the workers' counters summed, are logged here)."""
+    with contextlib.redirect_stderr(Tee(sys.stderr, sink)):
+        yield
+
+
+def counter(log: str, key: str) -> int:
+    """The last value logged for statistics counter `key` (0 if none)."""
+    found = re.findall(rf"^\s*{re.escape(key)}: (\d+)$", log, re.M)
+    return int(found[-1]) if found else 0
+
+
+def sync(device) -> None:
+    if resolve(device).type == "cuda":
+        torch.cuda.synchronize()

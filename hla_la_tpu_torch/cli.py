@@ -266,6 +266,18 @@ def _extract_bam(args, pkg):
     return bam_to_fastq_pairs(by_name)
 
 
+def _start_ranks(args) -> int:
+    """--sharded N: this process only starts the N ranks; each runs the
+    action again with its mesh.  Returns the largest exit code."""
+    from .parallel.launch import rank_cli, run_ranks
+    log_progress(f"starting {args.sharded} ranks on {args.device}")
+    ranks = run_ranks(rank_cli, args.sharded, args.device, args=(args.argv,))
+    for rank, (rc, launches) in enumerate(ranks):
+        log_progress(f"rank {rank}: exit code {rc}, kernel launches "
+                     + ", ".join(f"{k} {n}" for k, n in launches.items()))
+    return max(rc for rc, _ in ranks)
+
+
 def action_hla(args) -> int:
     pkg = _require_graph(args)
     out_dir = args.outputDirectory or os.path.join(args.workingDir,
@@ -283,16 +295,7 @@ def action_hla(args) -> int:
                 "multi-host runs: counts must cover ALL reads — run "
                 "--action extractkMerCounts on the full FASTQs instead")
     if args.sharded and args.mesh is None:
-        # this process only starts the ranks; each runs this action again
-        # with its mesh
-        from .parallel.launch import rank_cli, run_ranks
-        log_progress(f"starting {args.sharded} ranks on {args.device}")
-        ranks = run_ranks(rank_cli, args.sharded, args.device,
-                          args=(args.argv,))
-        for rank, (rc, launches) in enumerate(ranks):
-            log_progress(f"rank {rank}: exit code {rc}, kernel launches "
-                         + ", ".join(f"{k} {n}" for k, n in launches.items()))
-        return max(rc for rc, _ in ranks)
+        return _start_ranks(args)
     writes = args.mesh is None or args.mesh.rank == 0
     if writes:
         os.makedirs(out_dir, exist_ok=True)
@@ -664,18 +667,21 @@ def action_global_alignment(args) -> int:
 
 def action_validate(args) -> int:
     """Cohort validation (HLAtypeinference_validation.pl equivalent): the
-    samples of --validationBAMs typed one after the other in this process,
-    on --device; --nHosts/--hostIdx select cohort rows."""
+    samples of --validationBAMs typed one after the other, on --device;
+    --nHosts/--hostIdx select cohort rows.  With --sharded N every sample
+    is typed on N ranks (the reference's --backend sharded); rank 0 alone
+    writes the report and prints the cohort accuracy."""
     from .validation import read_sample_sheet, validate_cohort
     pkg = _require_graph(args)
     if not args.validationBAMs or not args.trueHLA:
         raise SystemExit("--validationBAMs and --trueHLA required")
-    if args.sharded or args.maxThreads > 1:
-        # run_hla_typing takes its worker pool and its ranks from the HLA
-        # action's arguments; a cohort run types in this one process
-        raise SystemExit("--sharded and --maxThreads are --action HLA "
-                         "options; --action validate types each sample in "
-                         "one process")
+    if args.maxThreads > 1:
+        # the reference ignores --maxThreads here; a cohort run starts no
+        # worker pool, and no flag is dropped silently
+        raise SystemExit("--maxThreads is one of the --action HLA options; "
+                         "--action validate starts no worker processes")
+    if args.sharded and args.mesh is None:
+        return _start_ranks(args)
     samples = read_sample_sheet(args.validationBAMs)
     out_dir = args.outputDirectory or os.path.join(args.workingDir,
                                                    "validation")
@@ -683,7 +689,9 @@ def action_validate(args) -> int:
                              args.device,
                              resolution=args.resolution,
                              n_hosts=args.nHosts, host_idx=args.hostIdx,
-                             ref=args.ref)
+                             ref=args.ref, sharded=args.mesh)
+    if report is None:          # a rank other than 0 of a sharded run
+        return 0
     print(f"cohort accuracy: {report.total_accuracy * 100:.2f}% over "
           f"{report.n_samples} samples "
           f"({len(report.discordant)} discordant calls)")

@@ -307,12 +307,19 @@ def pair_ll_reduction(L: np.ndarray, device: str | torch.device,
         return pair_ll_reduction_sharded(L, sharded)
     acc, Rpad = _pair_ll_diff(
         to_device(np.asarray(L, dtype=np.float32), resolve(device)))
-    acc = acc.cpu().numpy().astype(np.float64)
-    rowsum = L.astype(np.float64).sum(axis=1)
+    return pair_ll_assemble(acc.cpu().numpy().astype(np.float64), Rpad,
+                            L.astype(np.float64).sum(axis=1))
+
+
+def pair_ll_assemble(acc, rpad: int, rowsum):
+    """The [C, C] pair log-likelihoods from the difference term `acc` over
+    `rpad` (padded) reads and the per-cluster row sums `rowsum` [C]: the
+    rank-1 term 0.5 (rowsum_a + rowsum_b), plus acc, plus LOG_HALF per
+    read.  float64 numpy arrays or torch tensors, on any device."""
     base = 0.5 * (rowsum[:, None] + rowsum[None, :])
     # padded reads (value 0) add log 2 each to acc and LOG_HALF each to the
     # per-read constant: log 2 + LOG_HALF = 0, so using Rpad cancels
-    return base + acc + LOG_HALF * Rpad
+    return base + acc + LOG_HALF * rpad
 
 
 def _pair_ll_diff(L: torch.Tensor, tile_range=None

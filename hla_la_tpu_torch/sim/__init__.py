@@ -6,7 +6,9 @@ from .graph_sim import SimulatedPRG, simulate_prg_package
 from .read_sim import ReadSimulator, SimulatedPair
 from .truth import TrueReadLevels
 from .worlds import (LONG_READ_LENGTH, AsmWorld, CohortSample,
-                     CohortWorld, DecoyWorld, KirWorld, LongReadWorld,
-                     TypingWorld, ambiguous_q1, ambiguous_world, asm_world,
-                     cohort_world, decoy_world, kir_world, long_read_world,
-                     second_sample, typing_world, world_bam)
+                     CohortWorld, DecoyWorld, KirWorld, LongBenchReads,
+                     LongReadWorld, RealScaleWorld, TypingWorld,
+                     ambiguous_q1, ambiguous_world, asm_world, bench_world,
+                     cohort_world, decoy_world, kir_world, load_levels,
+                     long_bench_reads, long_read_world, second_sample,
+                     split_levels, typing_world, wgs_world, world_bam)

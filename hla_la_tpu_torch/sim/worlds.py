@@ -29,7 +29,14 @@ parameters.
   haplotypes 3 and 4 at the same coverage (``second_sample``), each in a
   BAM (``world_bam`` writes a world's reads into one, with a matching
   knownReferences spec in the package); its truth table holds the planted
-  alleles except one deliberately wrong allele of S2 at locus B.
+  alleles except one deliberately wrong allele of S2 at locus B;
+- ``bench_world``, ``wgs_world`` and ``long_bench_reads``: the real-PRG-scale
+  worlds of ``bench.py``, ``stress_wgs.py`` and ``stress_long.py``, each made
+  with the same calls, in the same order, from the same seed as that script
+  (a 3,000,000-level panel of 8 haplotypes; genes A and B, or the 17 loci of
+  ``LOCI_FOR_TYPING``; paired 101 bp reads over the whole of haplotypes 1
+  and 2, or ONT-like long reads over two gene windows).  `n_levels` cuts
+  the backbone for tests.
 
   world = long_read_world("build/worlds")
   cli.main(["--action", "HLA", *world.cli_args(), "--graph", world.graph])
@@ -50,6 +57,7 @@ from ..io.bam import (FLAG_PAIRED, FLAG_READ1, FLAG_READ2, FLAG_REVERSE,
 from ..io.fasta import write_fasta
 from ..io.fastq import read_fastq, write_fastq
 from ..models.kir_package import build_kir_package
+from ..utils.config import LOCI_FOR_TYPING
 from .graph_sim import simulate_prg_package
 from .read_sim import ReadSimulator, revcomp
 
@@ -114,6 +122,29 @@ DECOY_BACKBONE = 2400
 DECOY_DIVERGENCE = 0.04
 DECOY_FLANK = 3000
 DECOY_SEED = 99
+
+# the real-PRG-scale worlds (bench.py, stress_wgs.py, stress_long.py): a
+# 3,000,000-level panel of 8 haplotypes with SNPs at 1%; paired 101 bp reads
+# (fragments of 320 +- 30) over the whole of haplotypes 1 and 2.  The bench
+# world holds genes A and B at 1% of the backbone each and reads at 1x per
+# haplotype (~30k pairs); the WGS world all 17 typed loci at 0.4% each and
+# reads at half the diploid coverage per haplotype (~180k pairs at 12x).
+# The long reads are ONT-like reads of the bench panel over two windows of
+# 5% around genes A and B: log-normal lengths in [2 kb, 48 kb] at 25x per
+# window and haplotype, plus two of 60-90 kb each, with 0.5% insertions and
+# 0.5% deletions; reads past LONG_SPLIT are cut into chunks of that length
+REAL_SCALE_LEVELS = 3_000_000
+BENCH_SEED = 31337
+BENCH_GENES = {"A": (0.30, 0.31), "B": (0.60, 0.61)}
+BENCH_COVERAGE = 1.0
+WGS_SEED = 271828
+WGS_GENES = {loc: (0.05 + i * 0.053, 0.05 + i * 0.053 + 0.004)
+             for i, loc in enumerate(LOCI_FOR_TYPING)}
+WGS_COVERAGE = 12.0
+LONG_BENCH_WINDOWS = ((0.28, 0.33), (0.58, 0.63))
+LONG_BENCH_COVERAGE = 25.0
+LONG_BENCH_INDEL = 0.005
+LONG_SPLIT = 50_000
 
 # the assembly world: substitutions per contig, outside the exons
 ASM_SUBSTITUTIONS = 5
@@ -208,6 +239,44 @@ class AsmWorld:
 
     def cli_args(self) -> list[str]:
         return ["--ASMfasta", self.fasta, "--trueHLA", self.true_hla]
+
+
+@dataclasses.dataclass(frozen=True)
+class RealScaleWorld:
+    graph: str                          # graph package directory
+    fastq1: str
+    fastq2: str
+    truth: dict[str, list[str]]         # locus -> planted alleles
+    n_levels: int                       # backbone length of the panel
+    truth_levels: str | None = None     # per-base truth levels of the reads
+
+    def pairs(self) -> list:
+        """The read pairs as (FastqRead, FastqRead), in the order drawn."""
+        return list(zip(read_fastq(self.fastq1), read_fastq(self.fastq2)))
+
+
+@dataclasses.dataclass(frozen=True)
+class LongBenchReads:
+    graph: str                          # the bench panel's package
+    fastq: str                          # unpaired long reads, not split
+    truth_levels: str                   # per-base truth levels of the reads
+    truth: dict[str, list[str]]         # locus -> planted alleles
+
+
+def save_levels(path: str, levels: dict[str, np.ndarray]) -> None:
+    """Per-read truth levels (read name -> level per base) in one file."""
+    names = list(levels)
+    np.savez(path, names=np.asarray(names, dtype=str),
+             lengths=np.asarray([len(levels[n]) for n in names],
+                                dtype=np.int64),
+             levels=(np.concatenate([levels[n] for n in names])
+                     if names else np.zeros(0, np.int64)).astype(np.int64))
+
+
+def load_levels(path: str) -> dict[str, np.ndarray]:
+    with np.load(path) as z:
+        parts = np.split(z["levels"], np.cumsum(z["lengths"])[:-1])
+        return dict(zip(z["names"].tolist(), parts))
 
 
 def _cached(root: str, make_world, build):
@@ -666,3 +735,170 @@ def asm_world(out_dir: str, n_alleles: int = IMGT_ALLELES,
                 {"seed": ASM_SEED, "substitutions": ASM_SUBSTITUTIONS})
 
     return _cached(root, make_world, build)
+
+
+def _real_scale_panel(rng, n_levels: int, genes: dict):
+    return simulate_prg_package(rng, backbone_length=n_levels,
+                                n_haplotypes=8, snp_rate=0.01, genes=genes)
+
+
+def _whole_haplotype_pairs(rng, sim, coverage: float):
+    """Paired 101 bp reads at `coverage` along the whole of each of
+    haplotypes TRUTH_HAPS."""
+    rs = ReadSimulator(rng, read_length=101, fragment_mean=320,
+                       fragment_sd=30, with_error=True)
+    pairs = []
+    for h in TRUTH_HAPS:
+        seq, levels = sim.linearized(h)
+        pairs += rs.simulate_pairs_from_string(seq, levels, coverage,
+                                               name_prefix=f"h{h}")
+    return pairs
+
+
+def _real_scale_world(root: str, seed: int, n_levels: int, genes: dict,
+                      coverage: float, keep_levels: bool) -> RealScaleWorld:
+    def make_world(truth):
+        return RealScaleWorld(
+            graph=os.path.join(root, "pkg"),
+            fastq1=os.path.join(root, "R_1.fq"),
+            fastq2=os.path.join(root, "R_2.fq"), truth=truth,
+            n_levels=n_levels,
+            truth_levels=(os.path.join(root, "levels.npz") if keep_levels
+                          else None))
+
+    def build(world):
+        rng = np.random.default_rng(seed)
+        sim = _real_scale_panel(rng, n_levels, genes)
+        sim.write_package(world.graph)
+        pairs = _whole_haplotype_pairs(rng, sim, coverage)
+        write_fastq(world.fastq1, [p.r1.to_fastq() for p in pairs])
+        write_fastq(world.fastq2, [p.r2.to_fastq() for p in pairs])
+        if keep_levels:
+            levels = {}
+            for p in pairs:
+                levels[p.r1.name + "/1"] = p.r1.levels
+                levels[p.r2.name + "/2"] = p.r2.levels
+            save_levels(world.truth_levels, levels)
+        return _planted(sim, TRUTH_HAPS), {
+            "seed": seed, "backbone": n_levels, "loci": len(genes),
+            "coverage": coverage, "pairs": len(pairs)}
+
+    return _cached(root, make_world, build)
+
+
+def bench_world(out_dir: str, n_levels: int = REAL_SCALE_LEVELS
+                ) -> RealScaleWorld:
+    """Build (or reuse from `out_dir`) bench.py's world: an `n_levels`
+    panel with genes A and B, paired reads at BENCH_COVERAGE per haplotype
+    along the whole of haplotypes 1 and 2, and their truth levels
+    (``bench.py:57-87``)."""
+    return _real_scale_world(os.path.join(out_dir, f"bench_b{n_levels}"),
+                             BENCH_SEED, n_levels, BENCH_GENES,
+                             BENCH_COVERAGE, keep_levels=True)
+
+
+def wgs_world(out_dir: str, coverage: float = WGS_COVERAGE,
+              n_levels: int = REAL_SCALE_LEVELS) -> RealScaleWorld:
+    """Build (or reuse from `out_dir`) stress_wgs.py's world: an `n_levels`
+    panel with the 17 loci of LOCI_FOR_TYPING and paired reads at
+    `coverage` / 2 per haplotype along the whole of haplotypes 1 and 2
+    (``stress_wgs.py:42-84``)."""
+    return _real_scale_world(
+        os.path.join(out_dir, f"wgs_b{n_levels}_c{coverage:g}"), WGS_SEED,
+        n_levels, WGS_GENES, coverage / 2, keep_levels=False)
+
+
+def long_bench_reads(out_dir: str, n_levels: int = REAL_SCALE_LEVELS,
+                     coverage: float = LONG_BENCH_COVERAGE
+                     ) -> LongBenchReads:
+    """Build (or reuse from `out_dir`) stress_long.py's long reads of
+    bench_world's panel, drawn from BENCH_SEED after the panel as that
+    script draws them (``stress_long.py:55-107``): over each window of
+    LONG_BENCH_WINDOWS of haplotypes 1 and 2, reads of log-normal length in
+    [2 kb, 48 kb] until `coverage` times the window is reached, half of
+    them reverse-complemented, then two reads of 60-90 kb.  Truth levels
+    are kept per read in its sequencing orientation.  The panel is drawn
+    here again and written beside the reads: the package is bench_world's,
+    byte for byte, without the bench world's short reads."""
+    root = os.path.join(out_dir, f"bench_b{n_levels}_long_c{coverage:g}")
+
+    def make_world(truth):
+        return LongBenchReads(graph=os.path.join(root, "pkg"),
+                              fastq=os.path.join(root, "R_U.fq"),
+                              truth_levels=os.path.join(root, "levels.npz"),
+                              truth=truth)
+
+    def build(out):
+        truth, reads = _long_bench_reads(n_levels, coverage, out.graph)
+        write_fastq(out.fastq, [r.to_fastq() for r in reads])
+        save_levels(out.truth_levels, {r.name: r.levels for r in reads})
+        return truth, {"seed": BENCH_SEED, "backbone": n_levels,
+                       "coverage": coverage, "reads": len(reads),
+                       "bases": sum(len(r.seq) for r in reads)}
+
+    return _cached(root, make_world, build)
+
+
+def _long_bench_reads(n_levels: int, coverage: float, graph: str) -> tuple:
+    """(planted alleles, reads) of long_bench_reads; the panel's package is
+    written to `graph` (writing draws nothing)."""
+    from .read_sim import SimulatedRead
+    rng = np.random.default_rng(BENCH_SEED)
+    sim = _real_scale_panel(rng, n_levels, BENCH_GENES)
+    sim.write_package(graph)
+    rs = ReadSimulator(rng, insertion_rate=LONG_BENCH_INDEL,
+                       deletion_rate=LONG_BENCH_INDEL)
+    reads = []
+    for h in TRUTH_HAPS:
+        seq, levels = sim.linearized(h)
+        n = len(seq)
+        for wi, (flo, fhi) in enumerate(LONG_BENCH_WINDOWS):
+            src = seq[int(flo * n):int(fhi * n)]
+            slv = levels[int(flo * n):int(fhi * n)]
+            target = coverage * len(src)
+            made = 0
+            i = 0
+            while made < target:
+                L = int(np.clip(rng.lognormal(np.log(12000), 0.7),
+                                2000, 48000))
+                start = int(rng.integers(0, max(1, len(src) - L)))
+                rs.read_length = L
+                r = rs._sequence_read(src, slv, start)
+                if r is None:
+                    continue
+                rev = bool(rng.random() < 0.5)
+                name = f"ont_h{h}_w{wi}:::{i}"
+                if rev:
+                    reads.append(SimulatedRead(name, revcomp(r[0]),
+                                               r[1][::-1], r[2][::-1],
+                                               True, start))
+                else:
+                    reads.append(SimulatedRead(name, r[0], r[1], r[2],
+                                               False, start))
+                made += L
+                i += 1
+            # two reads past LONG_SPLIT per window and haplotype
+            for j in range(2):
+                L = int(rng.integers(60_000, 90_000))
+                start = int(rng.integers(0, max(1, len(src) - L)))
+                rs.read_length = L
+                r = rs._sequence_read(src, slv, start)
+                if r is not None:
+                    reads.append(SimulatedRead(
+                        f"ont_h{h}_w{wi}_xl:::{j}", r[0], r[1], r[2],
+                        False, start))
+    return _planted(sim, TRUTH_HAPS), reads
+
+
+def split_levels(levels: dict[str, np.ndarray],
+                 chunk: int = LONG_SPLIT) -> dict[str, np.ndarray]:
+    """Truth levels of reads cut as the CLI cuts reads past `chunk` bases
+    (``cli._split_long_reads``): chunk i of read r is r:::chunk<i>."""
+    out = {}
+    for name, lv in levels.items():
+        if len(lv) <= chunk:
+            out[name] = lv
+            continue
+        for i in range(0, len(lv), chunk):
+            out[f"{name}:::chunk{i // chunk}"] = lv[i:i + chunk]
+    return out

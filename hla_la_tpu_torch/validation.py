@@ -300,9 +300,14 @@ def validate_cohort(pkg: GraphPackage, samples: list[tuple[str, str]],
                     truth_path: str, out_dir: str, device,
                     resolution: int = 2, use_g: bool = True,
                     n_hosts: int = 1, host_idx: int = 0,
-                    ref: str | None = None) -> CohortReport:
+                    ref: str | None = None,
+                    sharded=None) -> CohortReport | None:
     """`device`: where each sample is typed and where the typer of the
     pileup analysis is made.
+    `sharded`: a parallel.mesh.Mesh; every rank of it calls this with the
+    same arguments and each sample is typed on all of them (the reference's
+    backend="sharded").  Rank 0 alone writes and returns the report; the
+    other ranks return None.
     n_hosts/host_idx: deterministic sample-sheet sharding for multi-host
     cohort runs (the reference's per-sample job arrays,
     Perl/applyToAllBAMs.pl + makefile_cluster3): host i processes samples
@@ -316,7 +321,9 @@ def validate_cohort(pkg: GraphPackage, samples: list[tuple[str, str]],
         log_progress(f"host {host_idx}/{n_hosts}: {len(samples)} samples")
     truth_all = read_truth_file(truth_path)
     report = CohortReport(primary_resolution=resolution)
-    os.makedirs(out_dir, exist_ok=True)
+    writes = sharded is None or sharded.rank == 0
+    if writes:
+        os.makedirs(out_dir, exist_ok=True)
     cram_ref = None
     for sample_id, bam in samples:
         if sample_id not in truth_all:
@@ -334,7 +341,9 @@ def validate_cohort(pkg: GraphPackage, samples: list[tuple[str, str]],
         # path (cli.py action_hla) — dropping unpaired reads here would
         # validate a different pipeline than the one shipped
         run_hla_typing(pkg, pairs=pairs, unpaired=unpaired,
-                       output_dir=sample_out, device=device)
+                       output_dir=sample_out, device=device, sharded=sharded)
+        if not writes:
+            continue
         # G calls where available, with a PER-LOCUS fall-back to the raw
         # calls (the G writer skips loci with no G-group table; those
         # must not score as no-calls)
@@ -345,6 +354,8 @@ def validate_cohort(pkg: GraphPackage, samples: list[tuple[str, str]],
             inferred.update(read_bestguess_with_q(g_path))
         report.add_sample(sample_id, inferred, truth_all[sample_id])
 
+    if not writes:
+        return None
     suffix = f"_host{host_idx}" if n_hosts > 1 else ""
     report.write_summary(os.path.join(out_dir,
                                       f"validation_report{suffix}.txt"))

@@ -227,9 +227,12 @@ def test_validate_selects_cohort_rows_by_host(capsys, tmp_path, cohort,
                              % (sample == "S2"))
 
 
-@pytest.mark.parametrize("flag", [["--maxThreads", "2"], ["--sharded", "2"]])
+@pytest.mark.parametrize("flag", [["--maxThreads", "2"],
+                                  ["--maxThreads", "2", "--sharded", "2"]])
 def test_validate_refuses_the_hla_actions_process_options(tmp_path, cohort,
                                                           flag):
+    """--maxThreads, alone or beside --sharded (which validate takes: its
+    test is in test_torch_parallel), is refused before anything is typed."""
     with pytest.raises(SystemExit) as exc:
         port_main(["--action", "validate", *cohort.cli_args(),
                    "--workingDir", str(tmp_path), "--device", "cpu", *flag])

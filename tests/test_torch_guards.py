@@ -50,14 +50,43 @@ def _imports(path: Path) -> list[str]:
 
 @pytest.mark.parametrize("rel",
                          PORT_FILES + ["chip_smoke.py", "bench_nw.py",
-                                       "bench_workers.py"])
+                                       "bench_workers.py", "bench_torch.py",
+                                       "stress_wgs_torch.py",
+                                       "stress_long_torch.py"])
 def test_file_imports_neither_jax_nor_the_jax_package(rel):
     roots = {n.split(".")[0] for n in _imports(REPO / rel)}
     assert not roots & FORBIDDEN, (rel, roots & FORBIDDEN)
     if rel in PORT_FILES:   # the package stands without the root's scripts
-        assert not roots & {"chip_smoke", "bench_nw", "bench_workers"}, rel
+        assert not roots & {"chip_smoke", "bench_nw", "bench_workers",
+                            "bench_torch", "stress_wgs_torch",
+                            "stress_long_torch"}, rel
     text = (REPO / rel).read_text()
     assert "import_module" not in text and "__import__" not in text, rel
+
+
+def test_graft_entry_runs_with_jax_and_the_jax_package_blocked():
+    """The twin of __graft_entry__.py on the CPU with both blocked: the
+    entry's step runs and the dry run's helpers import.  (The real-scale
+    twins run blocked in test_torch_real_scale.py, test_torch_stress_wgs.py
+    and test_torch_stress_long.py.)"""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["hla_la_tpu"] = None
+        import torch
+        torch.set_num_threads(1)
+        from hla_la_tpu_torch import graft_entry
+        from hla_la_tpu_torch.parallel import launch, mesh
+        fn, args = graft_entry.entry("cpu")
+        scores, pair, marg = fn(*args)
+        assert scores.shape == (256,) and pair.shape == (128, 128)
+        assert bool(torch.isfinite(marg).all()) and float(marg.max()) > 0
+        print("OK")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "OK", \
+        proc.stderr[-2000:]
 
 
 def test_the_import_guard_sees_nested_imports(tmp_path):
@@ -635,7 +664,7 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
 
 # what runs on the device, or decides that it does
 DEVICE_PATH_FILES = ["_build.py", "device.py", "cli.py", "profile_e2e.py",
-                     "gpu_check.py",
+                     "gpu_check.py", "graft_entry.py", "bench_common.py",
                      "ops/banded_nw.py", "ops/pair_ll.py", "ops/cuda_nw.py",
                      "ops/cuda_nw_long.py", "ops/cuda_pair.py",
                      "models/pipeline.py", "models/linear_alts.py",

@@ -578,3 +578,40 @@ def test_cli_sharded_switch_matches_one_process_and_the_reference(cli_world):
     assert ref_main(common + ["--outputDirectory", ref_out, "--backend",
                               "sharded"]) == 0
     _assert_runs_match(out, ref_out)
+
+
+@needs_spawn
+def test_cli_validate_sharded_matches_one_process_and_the_reference(
+        tmp_path, capfd):
+    """--action validate --sharded 2 (two gloo ranks, every sample typed on
+    both, rank 0 writing): the printed cohort accuracy and every report
+    file line for line those of the port's one-process validate and of the
+    reference CLI's validate; the other rank writes nothing."""
+    from hla_la_tpu_torch.sim import cohort_world
+    cohort = cohort_world(str(tmp_path / "w"), n_alleles=12, coverage=6.0,
+                          backbone=1800)
+    runs = {}
+    for tag, main, extra in (
+            ("one", port_main, ["--device", "cpu"]),
+            ("sharded", port_main, ["--device", "cpu", "--sharded", "2"]),
+            ("ref", ref_main, [])):
+        out = str(tmp_path / tag)
+        capfd.readouterr()
+        assert main(["--action", "validate", *cohort.cli_args(),
+                     "--outputDirectory", out] + extra) == 0
+        printed = [ln for ln in capfd.readouterr().out.splitlines()
+                   if ln.startswith("cohort accuracy")]
+        runs[tag] = (printed, out)
+    assert runs["sharded"][0] == runs["one"][0] == runs["ref"][0] == [
+        "cohort accuracy: 87.50% over 2 samples (1 discordant calls)"]
+    reports = sorted(n for n in os.listdir(runs["one"][1])
+                     if n.endswith(".txt"))
+    assert reports == sorted(n for n in os.listdir(runs["sharded"][1])
+                             if n.endswith(".txt"))
+    assert "validation_report.txt" in reports and len(reports) == 4
+    for name in reports:
+        lines = {tag: _read(os.path.join(out, name)).decode().splitlines()
+                 for tag, (_, out) in runs.items()}
+        assert lines["sharded"] == lines["one"] == lines["ref"], name
+    assert sorted(os.listdir(runs["sharded"][1])) == \
+        sorted(os.listdir(runs["one"][1]))
