@@ -56,7 +56,7 @@ and (t) run before (e), while the IMGT-scale world is still being built;
       K3 is then held against its plain version at each locus's C x R, as
       in (d);
   (i) the same recipe at a small size (backbone 6,000, 60 alleles, 2 kb
-      reads at 20x) on cuda against the CPU, as (f);
+      reads at 12x) on cuda against the CPU, as (f);
   (j) the kernels at the shapes of the linear-ALT (KIR) and assembly (ASM)
       typers: K1 at the KIR run's NW call, 65,536 x 100 x 32, with a
       quarter of the windows off a haplotype's left or right end; K2 at one
@@ -88,15 +88,17 @@ and (t) run before (e), while the IMGT-scale world is still being built;
       CPU: the decoy world with ``--decoyFasta`` (the same pairs dropped,
       nearly all of the paralog's, the same calls), and the ambiguous world
       (a Q1 strictly inside (0.05, 0.95); Q1/Q2 within 1e-3);
-  (p) worker processes and align shards on cuda, on the world of (e):
-      ``--maxThreads 4`` (every worker holds a context on the card): every
+  (p) worker processes and align shards on cuda: ``--maxThreads 4`` on the
+      world of (e) (every worker holds a context on the card): every
       output file byte-equal to the one-process run of (e), every NW job on
-      the card summed over the workers, K1 launched in the workers; then
-      the same run through ``run_hla_typing`` with the typing workers' gate
-      lowered, so that K3 is launched in the workers too; then ``--nHosts 2
-      --hostIdx 0/1 --shardDir`` and ``--mergeShards``, byte-equal again.
-      One-process and worker walls are printed side by side, with the
-      time the workers took to be ready;
+      the card summed over the workers, K1 launched in the workers; then,
+      on the small world of (f), ``run_hla_typing`` with four workers and
+      the typing workers' gate lowered, so that K3 is launched in the
+      workers too, and ``--nHosts 2 --hostIdx 0/1 --shardDir`` and
+      ``--mergeShards``, each byte-equal to (f)'s one-process run (both on
+      the small world since (z) runs the fan-out at IMGT scale: the time
+      limit).  One-process and worker walls are printed side by side, with
+      the time the workers took to be ready;
   (q) the sharded backend on the one card: ``ShardedNW`` bit-equal to
       ``NWRunner.run`` and ``pair_ll_reduction_sharded`` within rtol 1e-6 /
       atol 1e-2 of the one-device reduction, on an NCCL group of one rank
@@ -111,14 +113,14 @@ and (t) run before (e), while the IMGT-scale world is still being built;
       measured here.
 
   (r) ``--action validate`` on a cohort of two IMGT-scale samples in one
-      process (``sim.cohort_world``: S1 is the world of (e) read from a BAM,
-      S2 reads of haplotypes 3 and 4 of the same package; the truth table
-      names one wrong allele of S2 at locus B): "cohort accuracy: 87.50%",
-      one discordant call whose pileup analysis lists columns, S1's calls
-      those of (e), every NW job of each sample on the card, K1 and K3
-      launched for each (S1 as often as in (e)), and the page-locked bytes
-      of the process not grown from S1 to S2; per sample its wall, align s
-      and type s;
+      process, started for it (``sim.cohort_world``: S1 is the world of (e)
+      read from a BAM, S2 reads of haplotypes 3 and 4 of the same package;
+      the truth table names one wrong allele of S2 at locus B): "cohort
+      accuracy: 87.50%", one discordant call whose pileup analysis lists
+      columns, S1's calls those of (e), every NW job of each sample on the
+      card, K1 and K3 launched for each (S1 as often as in (e)), and the
+      page-locked bytes of the process not grown from S1 to S2; per sample
+      its wall, align s and type s;
   (s) ``--action remapAndReduce`` on S1's BAM: at least 90% of the pairs
       written, coordinate-sorted on the one PRG contig inside its levels,
       every NW job on the card, K1 launched;
@@ -150,21 +152,59 @@ and (t) run before (e), while the IMGT-scale world is still being built;
       fan-out, byte-identical, exact at every locus, K1 launched in the
       align workers and K3 in the typing workers; then K1 at the workers'
       call shape and K3 at the largest locus's C x R;
-  (y) stress_long.py's reads of the bench panel (``sim.long_bench_reads``:
-      ~15 Mb of 2-48 kb reads and 60-90 kb reads cut at 50 kb) typed
+  (y) stress_long.py's reads of the bench panel (``sim.long_bench_reads``
+      at a cut coverage of LONG_SMOKE_COVERAGE: ~9 Mb of 2-48 kb reads and
+      the eight 60-90 kb reads cut at 50 kb) typed
       through run_hla_typing in long-read mode with 4 workers: the planted
       alleles called, truth accuracy over 0.9, every NW job on the card, K2
       launched in the workers; then K3 at the largest locus's C x R.
-  The three real-scale worlds are built in processes of their own from the
-  start, beside the others, and (u)-(y) run last.
+  (z) ``stress_imgt_torch.py --loci4 --sharded`` in a process of its own,
+      started with this one and waiting until (z) (its peak-memory check
+      reads ru_maxrss, which starts from the forking process's peak): four
+      loci of 2,200 alleles on a backbone of 8,000 (~83,000 pairs at
+      1,250x) aligned in 8 workers, typed serially and with the per-locus
+      fan-out, which must pass its real gate (50,000 aligned reads, 4
+      loci) and run in 4 typing workers with K3 launched there once per
+      locus at C >= 2,000, each launch timed; the script's checks (planted
+      alleles in the called clusters, Q1 > 0.9, R floors, the full pair
+      dumps, peak RSS, the fan-out byte-identical to serial); then K1 at the
+      workers' call shape and K3 at one locus's C x R against their plain
+      versions, and the script's kernel section at the run's largest C x R
+      (K3 cold and warm, the host's native kernel, numpy on a slice of
+      IMGT_NUMPY_SLICE_R reads, extrapolated), held to each other;
+  (aa) stress_imgt.py --long: 1.5-3.8 kb reads of the world of (e)
+      (``sim.imgt_long_reads``) aligned in long-read mode by the workers
+      and typed in long-read mode at C >= 2,000: the planted alleles in the
+      called clusters, every NW job on the card; K2 bit-identical to its
+      plain version at the run's largest NW call, K3 at its largest locus;
+  (ab) from the same run, ``--sharded``: the pair reduction at the C x R of
+      (z) on 8 ranks sharing the card (model 2 x data 4, gloo), within rtol
+      1e-6 / atol 1e-2 of one device and of the host's native kernel; each
+      rank's tile range, reads and K3 times; K3 at rank 0's share against
+      plain;
+  (ac) tpu_e2e.py's twin (``e2e_torch.main``, record in build/): the GPU
+      probe, tpu_e2e.py's world on the CPU and on cuda cold and warm with
+      identical calls, K3 at 2,200 x 16,384;
+  (ad) bench_scaling.py's twin at 1, 2 and 4 ranks on the card: each rank
+      count's NW scores bit-equal to one device and its pair matrix within
+      rtol 1e-6 / atol 1e-2; one JSON line per count;
+  (ae) soak.py's twin on cuda: seeds 1000-1003 of mode hla (BAM, CRAM,
+      FASTQ pair, long reads) and seed 1000 of each other mode, all 13
+      passing; the three kernels held to their plain versions at the
+      largest launch each made.
+  The three real-scale worlds and tpu_e2e.py's world are built in
+  processes of their own from the start, beside the others (the four-locus
+  world and the long reads of (aa) once the world of (e) is there), and
+  (u)-(ae) run last, (ab) before (aa).
 
 The last two lines are the card's name and power limit, and
 {"ok": true, "device": {...}}; the line before them is the kernels' JSON
-record, one entry per kernel and main path (K1 runs on nine, K2 on three,
-K3 on ten), with the
-launches of that path's run and the kernel's time beside its bound: the
-larger of its bytes (inputs read once, outputs written once) over the card's
-memory rate and its operations over the card's peak rate for their type.
+record, one entry per kernel and main path (K1 runs on thirteen, K2 on
+five, K3 on sixteen; a path of (z)-(ae) also says where its launches ran),
+with the launches of that path's run and the kernel's time beside its
+bound: the larger of its bytes (inputs read once, outputs written once) over
+the card's memory rate and its operations over the card's peak rate for
+their type, and, for K3, the time of its library call where that fits.
 Nothing here imports jax or the JAX package.
 The worlds are cached under build/chip_smoke_world/.  One kernel alone:
 
@@ -207,6 +247,8 @@ NW_SHAPES = ((65536, 101, 32), (4096, 101, 32), (4096, 77, 31),
 NW_CPU = NW_SHAPES[1]
 PAIR_C, PAIR_R = 2200, 16460
 PAIR_RTOL, PAIR_ATOL = 1e-6, 1e-2
+# K3's library call (pair_library) runs where its intermediate fits here
+PAIR_LIBRARY_MAX_BYTES = 8e9
 Q_TOL = 1e-3
 Q1_MIN, C_MIN = 0.9, 2000       # stress_imgt.py's checks at IMGT scale
 SMALL_WORLD = {"n_alleles": 60, "coverage": 40.0}
@@ -216,7 +258,9 @@ NW_LONG_SHAPES = ((128, 4096, 256), (1024, 1400, 160), (256, 500, 100),
                   (64, 1000, 600), (256, 500, 33), (8192, 1100, 256))
 NW_LONG_CPU = NW_LONG_SHAPES[2]
 LONG_W = 256                    # the aligner's band in long-read mode
-SMALL_LONG_WORLD = {"backbone": 6000, "n_alleles": 60, "coverage": 20.0,
+# (i) at 12x, cut from 20x for the time limit (its CPU run's plain NW at
+# the long-read band is most of the phase)
+SMALL_LONG_WORLD = {"backbone": 6000, "n_alleles": 60, "coverage": 12.0,
                     "read_length": 2000}
 KIR_L, KIR_W = 100, 32          # the KIR world's reads, LinearALTsTyper.band
 ASM_W = 48                      # AssemblyTyper.band
@@ -227,7 +271,20 @@ POSTERIOR_MIN, R2G_MIN = 0.9, 0.9       # the KIR self-test's bars
 SMALL_KIR_WORLD = {"length": 12000, "coverage": 10.0}
 # (x) at a diploid coverage of 4: ~60k pairs, over the fan-out's gate
 WGS_SMOKE_COVERAGE = 4.0
+# (y) at a cut coverage of its windows (stress_long.py's is 25x), over the
+# 512 reads from which run_hla_typing aligns in workers (~585 at 15x); its
+# reads past 50 kb, two per window and haplotype, are drawn at any coverage
+LONG_SMOKE_COVERAGE = 15.0
 MARG_ATOL = 1e-4                # graft entry's marginal, cuda vs the CPU
+# (z): the numpy reduction's read slice (stress_imgt.py's 512 reads take
+# tens of GB of float64 temporaries at C = 2,200)
+IMGT_NUMPY_SLICE_R = 32
+# (ad): rank counts; (ae): soak seeds, fixed before any run
+SCALING_RANKS = (1, 2, 4)
+SOAK_HLA_SEEDS = (1000, 1001, 1002, 1003)     # bam, cram, fastq, long
+SOAK_SEED = 1000
+SOAK_MODES = ("kir", "asm", "shard", "decoy", "validate", "heldout",
+              "recomb", "remap", "corrupt")
 # (y): K2 at the split long reads' L (a 50 kb chunk) and the long-read band
 SPLIT_NW_SHAPE = (32, 50000, 256)
 SPLIT_RECORD = os.path.join(WORLD_DIR, "runs", "split_check.json")
@@ -262,9 +319,44 @@ def start_real_scale_builds() -> None:
     """The worlds of (w)-(y), each in a process of its own: bench.py's, the
     long reads of its panel (with the panel drawn again and its package
     written beside them), and stress_wgs.py's at a cut coverage."""
-    start_world_builds(("bench_world", "long_bench_reads"))
+    start_world_builds(("bench_world",))
+    start_world_builds(("long_bench_reads",), "sim.long_bench_reads("
+                       f"sys.argv[2], coverage={LONG_SMOKE_COVERAGE!r})")
     start_world_builds(("wgs_world",), "sim.wgs_world(sys.argv[2], "
                        f"{WGS_SMOKE_COVERAGE!r})")
+
+
+def start_e2e_build() -> None:
+    """tpu_e2e.py's world for (ac), in a process of its own, in
+    e2e_torch.py's cache (where its main looks)."""
+    start_world_builds(("e2e_world",), "import e2e_torch; sim.e2e_world("
+                       "e2e_torch.CACHE, e2e_torch.BACKBONE)")
+
+
+def start_imgt_builds() -> None:
+    """The worlds of (z) and (aa), each in a process of its own once the
+    IMGT-scale world of (e) is built (so that they do not slow its build):
+    stress_imgt.py's four-locus world, in stress_imgt_torch.py's cache
+    (where its main looks), and the long reads of the world of (e)."""
+    start_world_builds(("imgt4_world",), "import stress_imgt_torch as si; "
+                       "si.imgt_world(loci4=True)")
+    start_world_builds(("imgt_long_reads",), "sim.imgt_long_reads("
+                       "sim.typing_world(sys.argv[2]))")
+
+
+def start_imgt_twin() -> None:
+    """``stress_imgt_torch.py --loci4 --sharded`` for (z) and (ab), in a
+    process started now, while this one is small, that waits for a line on
+    its input before it imports anything: a process's peak resident memory
+    (ru_maxrss) starts from that of the process it was forked from, and the
+    script checks its own peak.  (z) writes the line."""
+    _WORLD_BUILDS["imgt_twin"] = subprocess.Popen(
+        [sys.executable, "-c", "import sys\n"
+         "sys.stdin.readline()\n"
+         "import stress_imgt_torch as si\n"
+         f"si.NUMPY_SLICE_R = {IMGT_NUMPY_SLICE_R}\n"
+         "sys.exit(si.main(sys.argv[1:]))", "--loci4", "--sharded"],
+        cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
 
 
 def start_split_check() -> None:
@@ -382,9 +474,7 @@ def pair_bound(C: int, R: int, max_mhz: float, tile_range=None) -> dict:
     by_ops = max(by_flops, by_sfu)
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bound_ms_float32_only": by_flops,
-            "library_ms": None}     # a broadcast logaddexp + sum would
-    # need a C x C x R intermediate; no single PyTorch call computes it
+            "bound_ms_float32_only": by_flops}
 
 
 def toolchain() -> str:
@@ -646,6 +736,7 @@ def check_pair(C: int, R: int, record: dict, tile_range=None) -> None:
     plain_ms = cuda_ms(
         lambda: pair_ll_diff_plain(Ld, tile_range=tile_range), reps=1)
     bound = pair_bound(C, R, max_mhz, tile_range)
+    bound.update(pair_library(Ld, acc1, rpad, tile_range))
     gcells = live_pairs(C, tile_range) * R / (ms * 1e-3) / 1e9
     parts = _build.library().lib.hla_pair_ll_parts(C, R)
     if tile_range is not None:
@@ -663,12 +754,47 @@ def check_pair(C: int, R: int, record: dict, tile_range=None) -> None:
           f"cells c1 <= c2), plain {plain_ms:.3f} ms; special-function bound "
           f"{bound['bound_ms']:.3f} ms at {max_mhz:.0f} MHz "
           f"({100 * bound['bound_ms'] / ms:.1f}% of it reached; SM clock "
-          f"after the timed launches {mhz:.0f} MHz)")
+          f"after the timed launches {mhz:.0f} MHz); library call "
+          + (f"{bound['library_ms']:.3f} ms (max abs err against the kernel "
+             f"{bound['library_max_abs_err']:.4g})"
+             if bound["library_ms"] is not None
+             else f"none ({bound['library_why']})"))
     record.update(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
                   read_parts=parts, **bound)
     if err64:
         record.update(max_abs_err_f64=err64["kernel"],
                       plain_max_abs_err_f64=err64["plain"])
+
+
+def pair_library(Ld, acc, rpad: int, tile_range=None) -> dict:
+    """The one PyTorch call that computes K3's difference term:
+    torch.logaddexp over the broadcast pair of rows, summed over the reads,
+    minus the rank-1 term 0.5 (rowsum_a + rowsum_b).  Timed by CUDA events
+    where its float32 C x C x R intermediate fits in
+    PAIR_LIBRARY_MAX_BYTES, and held to the kernel's `acc` (whose rpad - R
+    padded reads add log 2 each); else None with the reason."""
+    import torch
+    C, R = Ld.shape
+    need = 4 * C * C * R
+    if tile_range is not None:
+        return {"library_ms": None,
+                "library_why": "the call computes every tile, not a range"}
+    if need > PAIR_LIBRARY_MAX_BYTES:
+        return {"library_ms": None,
+                "library_why": f"its C x C x R float32 intermediate takes "
+                               f"{need / 1e9:.1f} GB"}
+
+    def library():
+        rows = Ld.sum(dim=1)
+        return (torch.logaddexp(Ld[:, None], Ld[None]).sum(-1)
+                - 0.5 * (rows[:, None] + rows[None, :]))
+
+    got = library()
+    err = (got.double() - (acc.double() - math.log(2.0) * (rpad - R))
+           ).abs().max().item()
+    del got
+    return {"library_ms": cuda_ms(library, reps=3),
+            "library_max_abs_err": err}
 
 
 @contextlib.contextmanager
@@ -955,16 +1081,23 @@ def kernel_records() -> dict:
     bench = "bench.py's 3M-level world in 8 workers, phase (w)"
     wgs = "stress_wgs.py's 17-locus world, typing fan-out, phase (x)"
     split = "stress_long.py's split long reads in 4 workers, phase (y)"
+    imgt4 = "stress_imgt.py --loci4, 4 IMGT-scale loci, phase (z)"
+    imgt_long = "stress_imgt.py --long, long reads at C = 2,200, phase (aa)"
+    ranks8 = "stress_imgt.py --sharded, the reduction on 8 ranks, phase (ab)"
+    e2e = "tpu_e2e.py's twin, phase (ac)"
+    scaling = "bench_scaling.py's twin, full_step on 4 ranks, phase (ad)"
+    soak = "soak.py's twin, 13 randomized CLI trials, phase (ae)"
     cohort = "a cohort of two samples (--action validate), phase (r)"
     remap = "--action remapAndReduce, phase (s)"
     workers = "short reads in 4 worker processes, phase (p)"
+    typing_workers = "typing workers, small world, phase (p)"
     ranks = "short reads on 4 ranks (--sharded 4), phase (q)"
     return {"nw": nw, "pair": pair, "nw_long": nw_long,
             "pair_long": {**pair, "path": long_},
             "nw_kir": {**nw, "path": kir}, "pair_kir": {**pair, "path": kir},
             "nw_asm": {**nw_long, "path": asm},
             "nw_workers": {**nw, "path": workers},
-            "pair_workers": {**pair, "path": workers},
+            "pair_workers": {**pair, "path": typing_workers},
             "nw_sharded": {**nw, "path": ranks},
             "pair_sharded": {**pair, "path": ranks},
             "nw_cohort": {**nw, "path": cohort},
@@ -977,7 +1110,20 @@ def kernel_records() -> dict:
             "nw_wgs": {**nw, "path": wgs},
             "pair_wgs": {**pair, "path": wgs},
             "nw_split": {**nw_long, "path": split},
-            "pair_split": {**pair, "path": split}}
+            "pair_split": {**pair, "path": split},
+            "nw_imgt4": {**nw, "path": imgt4, "ran_in": "align workers"},
+            "pair_imgt4": {**pair, "path": imgt4, "ran_in": "typing workers"},
+            "nw_imgt_long": {**nw_long, "path": imgt_long,
+                             "ran_in": "align workers"},
+            "pair_imgt_long": {**pair, "path": imgt_long, "ran_in": "parent"},
+            "pair_ranks8": {**pair, "path": ranks8, "ran_in": "8 ranks"},
+            "nw_e2e": {**nw, "path": e2e, "ran_in": "parent"},
+            "pair_e2e": {**pair, "path": e2e, "ran_in": "parent"},
+            "nw_scaling": {**nw, "path": scaling, "ran_in": "4 ranks"},
+            "pair_scaling": {**pair, "path": scaling, "ran_in": "4 ranks"},
+            "nw_soak": {**nw, "path": soak, "ran_in": "parent"},
+            "nw_long_soak": {**nw_long, "path": soak, "ran_in": "parent"},
+            "pair_soak": {**pair, "path": soak, "ran_in": "parent"}}
 
 
 def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> dict:
@@ -1032,6 +1178,7 @@ def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> dict:
     phase("(e) end to end: the port's CLI on cuda, IMGT-scale world")
     world = built_world("typing_world")
     start_bam_build()
+    start_imgt_builds()
     print(f"world: {world.graph}; planted {world.truth}")
     res = run_port("cuda", world, os.path.join(WORLD_DIR, "runs", "cuda"))
     check_launched(res, ("K1", "K3"))
@@ -1165,6 +1312,32 @@ def per_sample_probe(samples: list):
         pipeline.run_hla_typing = inner
 
 
+def validate_in_own_process(argv: list) -> tuple[dict, list]:
+    """(r)'s --action validate on cuda, probed per sample, in a process of
+    its own: the page-locked pool it reads is then the cohort's alone, not
+    also the blocks that the phases before it left in PyTorch's host cache
+    (with them, S2 took one more 128 KiB block than S1 in two of five
+    calls).  Returns (run_cli's result, the per-sample records)."""
+    path = os.path.join(WORLD_DIR, "runs", "cohort_probe.json")
+    code = ("import json, sys\n"
+            "import chip_smoke as c\n"
+            "samples = []\n"
+            "with c.per_sample_probe(samples):\n"
+            "    res = c.run_cli(json.loads(sys.argv[1]), 'cuda', "
+            "'--action validate')\n"
+            "with open(sys.argv[2], 'w') as fh:\n"
+            "    json.dump({'res': res, 'samples': samples}, fh)\n")
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(argv),
+                           path], cwd=ROOT)
+    if proc.returncode != 0:
+        fail(f"--action validate in its own process: exit code "
+             f"{proc.returncode}")
+    with open(path) as fh:
+        got = json.load(fh)
+    return got["res"], [{**s_, "pinned": tuple(s_["pinned"])}
+                        for s_ in got["samples"]]
+
+
 def run_cli(argv: list, device: str, tag: str) -> dict:
     """The port's CLI on `argv` + ``--device device``; the kernels' launch
     counters are zeroed just before the run and read just after it.
@@ -1258,11 +1431,9 @@ def cohort_phases(one_process: dict, rec: dict) -> None:
           f"{cohort.wrong[1]} allele of {cohort.wrong[0]}")
     out_dir = os.path.join(runs, "cohort")
     shutil.rmtree(out_dir, ignore_errors=True)
-    samples = []
-    with per_sample_probe(samples):
-        res = run_cli(["--action", "validate", *cohort.cli_args(),
-                       "--outputDirectory", out_dir], "cuda",
-                      "--action validate")
+    res, samples = validate_in_own_process(
+        ["--action", "validate", *cohort.cli_args(), "--outputDirectory",
+         out_dir])
     want = "cohort accuracy: 87.50% over 2 samples (1 discordant calls)"
     if res["lines"] != [want]:
         fail(f"--action validate printed {res['lines']}, want [{want!r}]")
@@ -1642,9 +1813,11 @@ def worker_phases(one_process: dict, rec: dict) -> None:
     from hla_la_tpu_torch.utils.config import RunConfig, TyperConfig
 
     world, one = one_process["imgt"]
+    small, small_one = one_process["small"]
     runs = os.path.join(WORLD_DIR, "runs")
 
-    phase("(p) --maxThreads 4 and align shards on cuda, IMGT-scale world")
+    phase("(p) --maxThreads 4 on cuda, IMGT-scale world; typing workers and "
+          "align shards, small world")
     res = run_port("cuda", world, os.path.join(runs, "workers"),
                    ("--maxThreads", "4"))
     n = same_files(res["dir"], one["dir"], "--maxThreads 4")
@@ -1672,14 +1845,14 @@ def worker_phases(one_process: dict, rec: dict) -> None:
           f"({one['align_s'] / max(res['align_s'] - last, 1e-9):.2f} times "
           f"the one-process rate)")
     rec["nw_workers"]["launches"] = res["worker_launches"]["K1"]
-    rec["pair_workers"].update({k: v for k, v in rec["pair"].items()
-                                if k not in ("path", "launches")})
     # the workers' NW calls: a chunk of 256 pairs' jobs each
     check_nw(round(res["nw_jobs"] / res["worker_launches"]["K1"]), 101, 32,
              rec["nw_workers"])
 
-    # the same run with the typing workers' gate lowered (two loci are
-    # under its default): K3 is then launched in the workers
+    # run_hla_typing on the small world with the typing workers' gate
+    # lowered (its two loci and few reads are under the default): K3 is
+    # then launched in the workers.  (z) runs the fan-out through its real
+    # gate at four IMGT-scale loci
     log = io.StringIO()
     out_dir = os.path.join(runs, "typing_workers")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -1687,14 +1860,14 @@ def worker_phases(one_process: dict, rec: dict) -> None:
     t0 = time.perf_counter()
     with logged(log):
         run_hla_typing(
-            GraphPackage(world.graph),
-            pairs=pair_up_fastq(world.fastq1, world.fastq2),
+            GraphPackage(small.graph),
+            pairs=pair_up_fastq(small.fastq1, small.fastq2),
             output_dir=out_dir, device="cuda",
             cfg=RunConfig(max_threads=4, typer=TyperConfig(
                 min_reads_for_typing_workers=1,
                 min_loci_for_typing_workers=2)))
     wall = time.perf_counter() - t0
-    same_files(out_dir, one["dir"], "typing workers")
+    same_files(out_dir, small_one["dir"], "typing workers")
     m = re.search(r"in typing workers: K3 (\d+)", log.getvalue())
     if not m or int(m.group(1)) <= 0 or pair_ll_diff_cuda.launches != 0:
         fail(f"typing workers: K3 launches in the workers "
@@ -1703,6 +1876,8 @@ def worker_phases(one_process: dict, rec: dict) -> None:
     print(f"typing workers: byte-equal to the one-process run; K3 launched "
           f"{m.group(1)} times in the workers, never in the parent; "
           f"run_hla_typing {wall:.3f} s")
+    C, R = max(small_one["loci"].values(), key=lambda cr: cr[1])
+    check_pair(C, R, rec["pair_workers"])
 
     shard_dir = os.path.join(runs, "shards")
     shutil.rmtree(shard_dir, ignore_errors=True)
@@ -1711,8 +1886,8 @@ def worker_phases(one_process: dict, rec: dict) -> None:
         t0 = time.perf_counter()
         log = io.StringIO()
         with logged(log):
-            rc = port_main(["--action", "HLA", *world.cli_args(), "--graph",
-                            world.graph, "--sampleID", "S1",
+            rc = port_main(["--action", "HLA", *small.cli_args(), "--graph",
+                            small.graph, "--sampleID", "S1",
                             "--outputDirectory",
                             os.path.join(runs, f"host{host}"), "--device",
                             "cuda", "--nHosts", "2", "--hostIdx", host,
@@ -1727,13 +1902,13 @@ def worker_phases(one_process: dict, rec: dict) -> None:
     shutil.rmtree(merged, ignore_errors=True)
     t0 = time.perf_counter()
     with logged(io.StringIO()):
-        rc = port_main(["--action", "HLA", "--graph", world.graph,
+        rc = port_main(["--action", "HLA", "--graph", small.graph,
                         "--sampleID", "S1", "--outputDirectory", merged,
                         "--device", "cuda", "--mergeShards", shard_dir])
     walls.append(time.perf_counter() - t0)
     if rc != 0:
         fail(f"--mergeShards: rc {rc}")
-    n = same_files(merged, one["dir"], "shards + merge")
+    n = same_files(merged, small_one["dir"], "shards + merge")
     print(f"--nHosts 2 + --mergeShards: {n} files byte-equal to the "
           f"one-process run; align shards {walls[0]:.3f} and {walls[1]:.3f} "
           f"s, merge and typing {walls[2]:.3f} s")
@@ -1916,7 +2091,8 @@ def real_scale_phases(rec: dict) -> None:
     wait_build("split_check")
     with open(SPLIT_RECORD) as fh:
         rec["nw_split"].update(json.load(fh))
-    reads = built_world("long_bench_reads")
+    reads = built_world("long_bench_reads", lambda sim: sim.long_bench_reads(
+        WORLD_DIR, coverage=LONG_SMOKE_COVERAGE))
     try:
         st = stress_long_torch.stress_long(reads, "cuda", os.path.join(
             WORLD_DIR, "runs", "long_bench"))
@@ -1938,6 +2114,202 @@ def real_scale_phases(rec: dict) -> None:
     rec["pair_split"]["launches"] = st["launches_parent"]["K3"]
     C, R = max(st["loci"].values(), key=lambda cr: cr[1])
     check_pair(C, R, rec["pair_split"])
+    sync()
+
+
+def imgt_phases(rec: dict) -> None:
+    """Phases (z)-(ab): stress_imgt.py's twin on cuda: ``--loci4
+    --sharded`` (the four-locus world with the typing fan-out at its real
+    gate, the kernel section, the reduction on 8 ranks) as a process of its
+    own, as the script runs (its peak-memory check is of that run alone);
+    then long-read mode at C = 2,200 through its function."""
+    import stress_imgt_torch as si
+    from hla_la_tpu_torch.models.aligner import jobs_per_call
+    from hla_la_tpu_torch.sim import typing_world
+    from hla_la_tpu_torch.sim.worlds import IMGT4_GENES
+    n_workers = min(os.cpu_count() or 1, si.MAX_WORKERS)
+
+    phase("(z) stress_imgt.py --loci4 --sharded in a process of its own "
+          "(started with this one): serial vs fan-out typing at 4 loci, then "
+          "(ab) 8 ranks")
+    wait_build("imgt4_world")
+    t0 = time.perf_counter()
+    proc = _WORLD_BUILDS.pop("imgt_twin")
+    out, _ = proc.communicate("go\n")
+    lines = out.strip().splitlines()
+    if proc.returncode != 0 or len(lines) < 2 or lines[-2] != "STRESS_IMGT OK":
+        fail(f"stress_imgt_torch.py --loci4 --sharded: exit code "
+             f"{proc.returncode}, last lines {lines[-2:]}")
+    st = json.loads(lines[-1])
+    print(f"stress_imgt_torch.py --loci4 --sharded: "
+          f"{time.perf_counter() - t0:.1f} s with its process, its pool and "
+          f"its ranks")
+    runs = st["typing_worker_runs"]
+    worker_ms = [ms for run in runs for ms in run["k3_ms"]]
+    lw = st["launches_workers"]
+    if not st["fanout_ran"] or st["fanout_gate_lowered"] \
+            or st["typing_workers"] != len(IMGT4_GENES) \
+            or lw["K3"] != len(IMGT4_GENES) or len(worker_ms) != lw["K3"] \
+            or lw["K1"] <= 0:
+        fail(f"--loci4 fan-out: ran {st['fanout_ran']} in "
+             f"{st['typing_workers']} workers (gate lowered "
+             f"{st['fanout_gate_lowered']}), launches in the workers {lw}")
+    print(f"--loci4 world ({st['pairs']} pairs, {st['pairs_aligned']} "
+          f"aligned): align {st['align_s']:.3f} s in {st['align_workers']} "
+          f"workers ({st['reads_per_s']:.1f} reads/s; pool and warm-up "
+          f"{st['pool_ready_s']:.1f} s); typing serial "
+          f"{st['type_serial_s']:.3f} s, fan-out {st['type_fanout_s']:.3f} s "
+          f"in {st['typing_workers']} workers through the real gate "
+          f"{st['fanout_gate']}, ready after "
+          f"{[round(r['ready_s'], 2) for r in runs]} s, done after "
+          f"{[round(r['done_s'], 2) for r in runs]} s; K3 per launch in "
+          f"them {[round(ms, 3) for ms in worker_ms]} ms; {st['files']} files "
+          f"byte-identical; peak RSS {st['peak_rss_gb']:.2f} GB; calls "
+          f"{st['calls']}; C x R {st['loci']}")
+    rec["nw_imgt4"]["launches"] = lw["K1"]
+    check_nw(round(st["n_chain_extensions"] / lw["K1"]), 101, 32,
+             rec["nw_imgt4"])
+    C, R = max(st["loci"].values(), key=lambda cr: cr[1])
+    rec["pair_imgt4"].update(launches=lw["K3"], worker_ms=worker_ms)
+    check_pair(C, R, rec["pair_imgt4"])
+    pr = st["pair_reduction"]
+    print(f"kernel section at C={pr['C']} R={pr['R']}: K3 "
+          f"{pr['k3_warm_ms']:.3f} ms warm ({pr['k3_cold_ms']:.3f} cold, "
+          f"with its copies and rank-1 term), native on the host "
+          f"{pr.get('native_s', float('nan')):.3f} s, numpy "
+          f"{pr['numpy_s']:.1f} s ({pr['numpy_s_is']})")
+    rec["pair_imgt4"]["kernel_section"] = pr
+    sync()
+
+    phase("(ab) the sharded reduction on 8 ranks (4 x 2), from the run of (z)")
+    sh = st["sharded"]
+    per = sh["per_rank"]
+    if sh["ranks"] != 8 or sh["mesh"] != "4x2" \
+            or any(r["launches"] != 2 for r in per):
+        fail(f"8-rank reduction: {sh['ranks']} ranks, mesh {sh['mesh']}, "
+             f"launches {[r['launches'] for r in per]}")
+    rank_ms = [[round(x, 3) for x in r["k3_ms"]] for r in per]
+    print(f"8 ranks on the card ({sh['backend']}): {sh['warm_s']:.3f} s warm "
+          f"({sh['cold_s']:.3f} s cold), {sh['wall_s']:.1f} s with the ranks' "
+          f"start; K3 per rank {rank_ms} ms; tile ranges "
+          f"{[r['tile_range'] for r in per]}, reads "
+          f"{[r['reads'] for r in per]}; |sharded - one device| "
+          f"{sh['vs_one_device_max_abs']:.4g}, |sharded - native| "
+          f"{sh.get('vs_native_max_abs', float('nan')):.4g}")
+    rec["pair_ranks8"].update(
+        launches=sum(r["launches"] for r in per),
+        rank_ms=[ms for r in per for ms in r["k3_ms"]])
+    check_pair(pr["C"], per[0]["reads"][1], rec["pair_ranks8"],
+               tuple(per[0]["tile_range"]))
+    sync()
+
+    phase("(aa) stress_imgt.py --long: long reads at C = 2,200")
+    wait_build("imgt_long_reads")
+    try:
+        st = si.stress_long(typing_world(WORLD_DIR), "cuda", n_workers,
+                            os.path.join(WORLD_DIR, "runs", "imgt_long"))
+    except AssertionError as exc:
+        fail(f"--long: {exc}")
+    k2 = st["launches_workers"]["K2"]
+    if k2 <= 0:
+        fail(f"--long: K2 launches in the workers {st['launches_workers']}")
+    print(f"--long: {st['reads']} reads ({st['mb']:.2f} Mb, longest "
+          f"{st['longest_read']}), {st['aligned']} aligned in "
+          f"{st['align_s']:.3f} s (pool {st['pool_s']:.1f} s), typed in "
+          f"{st['type_s']:.3f} s; calls {st['calls']}; C x R {st['loci']}; "
+          f"K2 {k2} launches in the workers, K3 "
+          f"{st['launches_parent']['K3']} here; all "
+          f"{st['n_chain_extensions']} NW jobs on the card")
+    # an unpaired read's jobs span the read: the largest call holds the
+    # longest read, at most jobs_per_call of them
+    L_max = st["longest_read"]
+    B = min(jobs_per_call(L_max, LONG_W), -(-st["n_chain_extensions"] // k2))
+    rec["nw_imgt_long"]["launches"] = k2
+    check_nw_long(B, L_max, LONG_W, rec["nw_imgt_long"])
+    rec["pair_imgt_long"]["launches"] = st["launches_parent"]["K3"]
+    C, R = max(st["loci"].values(), key=lambda cr: cr[1])
+    check_pair(C, R, rec["pair_imgt_long"])
+    sync()
+
+
+def twin_phases(rec: dict) -> None:
+    """Phases (ac)-(ae): the twins of tpu_e2e.py, bench_scaling.py and
+    soak.py on cuda."""
+    import bench_scaling_torch
+    import e2e_torch
+    import soak_torch
+    from hla_la_tpu_torch.bench_common import largest_launches, zero_launches
+    from hla_la_tpu_torch.models.parallel_host import kernel_launches
+    from hla_la_tpu_torch.ops.pair_ll import pair_tiles
+
+    phase("(ac) tpu_e2e.py's twin: the CPU against cold and warm cuda")
+    wait_build("e2e_world")
+    out = os.path.join(ROOT, "build", "e2e_torch.json")
+    try:
+        rc = e2e_torch.main(["--out", out])
+    except AssertionError as exc:
+        fail(f"e2e twin: {exc}")
+    if rc != 0:
+        fail(f"e2e twin exited {rc}")
+    with open(out) as fh:
+        e2e = json.load(fh)
+    print(f"e2e twin ({e2e['world']['pairs']} pairs): CPU "
+          f"{e2e['host_e2e_s']:.3f} s, cuda cold "
+          f"{e2e['device_e2e_cold_s']:.3f} s, warm "
+          f"{e2e['device_e2e_warm_s']:.3f} s; calls {e2e['calls']} "
+          f"identical, max |dQ1| {e2e['max_abs_dq1']:.3g}; K3 at "
+          f"{e2e['pair_C']} x {e2e['pair_R']}: {e2e['pair_s'] * 1e3:.3f} ms "
+          f"({e2e['pair_gcells_per_s']:.1f} Gcells/s); launches of the "
+          f"device runs {e2e['launches_device_runs']}")
+    rec["nw_e2e"]["launches"] = e2e["launches_device_runs"]["K1"]
+    check_nw(*e2e["largest_launches"]["K1"], rec["nw_e2e"])
+    rec["pair_e2e"]["launches"] = e2e["pair_launches"]
+    check_pair(e2e["pair_C"], e2e["pair_R"], rec["pair_e2e"])
+    sync()
+
+    phase("(ad) bench_scaling.py's twin at 1, 2 and 4 ranks on the card")
+    try:
+        runs = bench_scaling_torch.scaling("cuda", SCALING_RANKS)
+    except AssertionError as exc:
+        fail(f"scaling twin: {exc}")
+    for run in runs:
+        print(json.dumps({k: v for k, v in run.items()
+                          if k not in ("inputs", "out")}))
+    last = runs[-1]
+    per_rank = last["launches_per_rank"]
+    if any(lc["K1"] <= 0 or lc["K3"] <= 0 for lc in per_rank):
+        fail(f"scaling twin: launches per rank {per_rank}")
+    bs = bench_scaling_torch
+    rec["nw_scaling"]["launches"] = sum(lc["K1"] for lc in per_rank)
+    check_nw(bs.B0, bs.L, bs.W, rec["nw_scaling"])
+    rec["pair_scaling"]["launches"] = sum(lc["K3"] for lc in per_rank)
+    n_model = int(last["mesh"].split("x")[1])
+    check_pair(bs.C, bs.B0, rec["pair_scaling"],
+               (0, pair_tiles(bs.C) // n_model))
+    sync()
+
+    phase("(ae) soak.py's twin on cuda: seeds 1000-1003 of hla, 1000 of the "
+          "rest")
+    zero_launches()
+    fails = soak_torch.run(len(SOAK_HLA_SEEDS), SOAK_HLA_SEEDS[0], "hla",
+                           "cuda")
+    for mode in SOAK_MODES:
+        fails += soak_torch.run(1, SOAK_SEED, mode, "cuda")
+    launches, largest = kernel_launches(), largest_launches()
+    sync()
+    n_trials = len(SOAK_HLA_SEEDS) + len(SOAK_MODES)
+    if fails:
+        fail(f"soak twin: {fails} of {n_trials} trials failed")
+    if any(launches[k] <= 0 for k in ("K1", "K2", "K3")):
+        fail(f"soak twin: launches {launches}")
+    print(f"soak twin: all {n_trials} trials passed on cuda; launches "
+          f"{launches}, largest {largest}")
+    rec["nw_soak"]["launches"] = launches["K1"]
+    check_nw(*largest["K1"], rec["nw_soak"])
+    rec["nw_long_soak"]["launches"] = launches["K2"]
+    check_nw_long(*largest["K2"], rec["nw_long_soak"])
+    rec["pair_soak"]["launches"] = launches["K3"]
+    check_pair(*largest["K3"], rec["pair_soak"])
     sync()
 
 
@@ -1970,6 +2342,8 @@ def main() -> int:
     rec = kernel_records()
     start_world_builds()
     start_real_scale_builds()
+    start_e2e_build()
+    start_imgt_twin()
     try:
         one_process = hla_phases(rec["nw"], rec["pair"], rec["nw_long"],
                                  rec["pair_long"])
@@ -1979,6 +2353,8 @@ def main() -> int:
         worker_phases(one_process, rec)
         sharded_phases(one_process, rec)
         real_scale_phases(rec)
+        imgt_phases(rec)
+        twin_phases(rec)
     finally:
         stop_world_builds()
 

@@ -54,13 +54,28 @@ def rss_gb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
 
 
-def zero_launches() -> None:
-    """Set every kernel wrapper's launch count in this process to 0."""
+def _wrappers() -> dict:
     from .ops.cuda_nw import banded_nw_cuda
     from .ops.cuda_nw_long import banded_nw_long_cuda
     from .ops.cuda_pair import pair_ll_diff_cuda
-    for fn in (banded_nw_cuda, banded_nw_long_cuda, pair_ll_diff_cuda):
+    return {"K1": banded_nw_cuda, "K2": banded_nw_long_cuda,
+            "K3": pair_ll_diff_cuda}
+
+
+def zero_launches() -> None:
+    """Set every kernel wrapper's launch count in this process to 0, and
+    forget its largest launch."""
+    for fn in _wrappers().values():
         fn.launches = 0
+        fn.largest = (0,) * len(fn.largest)
+
+
+def largest_launches() -> dict:
+    """Kernel -> the shape of its launch with the most cells in this
+    process since the counts were zeroed ([B, L, W] of K1 and K2, [C, R]
+    of K3), for the kernels launched."""
+    return {k: list(fn.largest[1:]) for k, fn in _wrappers().items()
+            if fn.largest[0]}
 
 
 class Tee(io.TextIOBase):

@@ -32,6 +32,7 @@ import math
 import os
 import sys
 import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -308,8 +309,13 @@ class HLATyper:
         self.cfg = cfg or TyperConfig()
         self.device = resolve(device)
         self.sharded = sharded      # a parallel.mesh.Mesh or None
-        # K3 launches made by typing workers for this typer, by kernel
+        # K3 launches made by typing workers for this typer, by kernel, and
+        # per chunk of loci a worker typed: its pid, its seconds from the
+        # fan-out's start until it was ready to type (process, package,
+        # typer, device context) and until it was done, and the device
+        # milliseconds of each K3 launch it made
         self.worker_launches = {"K3": 0}
+        self.worker_runs: list[dict] = []
         self.segment_files = pkg.segment_files()
         self.graph_genes = self._discover_genes()
         # gene-segment columns only, not the full 3M-entry map of a
@@ -635,6 +641,7 @@ class HLATyper:
             # one build, here, before any worker asks for the library
             from .. import _build
             _build.library()
+        t_start = time.time()
         try:
             if worker_pool is not None:
                 chunk_results = worker_pool.pool.map(_typing_worker, args)
@@ -646,8 +653,12 @@ class HLATyper:
             if kc_path is not None and os.path.exists(kc_path):
                 os.unlink(kc_path)
         out = {}
-        for res, launches in chunk_results:
+        for res, launches, run in chunk_results:
             self.worker_launches["K3"] += launches
+            self.worker_runs.append({
+                "pid": run["pid"], "loci": [locus for locus, _, _ in res],
+                "ready_s": run["ready_at"] - t_start,
+                "done_s": run["done_at"] - t_start, "k3_ms": run["k3_ms"]})
             for locus, r, hist_text in res:
                 out[locus] = (r, hist_text)
         if set(out) != set(self.loci):
@@ -2216,6 +2227,10 @@ def _typing_worker(args):
         if aligned_pairs else None)
     typer._hist_override = hist_w   # full-set fractions for the histogram
     typer._async_out = _AsyncOutput()
+    torch.zeros(1, device=typer.device)     # the device context, if new
+    ready_at = time.time()
+    if typer.device.type == "cuda":
+        pair_ll_diff_cuda.events = []       # each K3 launch timed
     out = []
     try:
         for locus in loci:
@@ -2229,4 +2244,11 @@ def _typing_worker(args):
     finally:
         aout, typer._async_out = typer._async_out, None
         aout.flush(raising=sys.exc_info()[0] is None)
-    return out, pair_ll_diff_cuda.launches - launches_before
+        events, pair_ll_diff_cuda.events = pair_ll_diff_cuda.events, None
+    k3_ms = []
+    if events:
+        torch.cuda.synchronize(typer.device)
+        k3_ms = [start.elapsed_time(end) for start, end in events]
+    return out, pair_ll_diff_cuda.launches - launches_before, {
+        "pid": os.getpid(), "ready_at": ready_at, "done_at": time.time(),
+        "k3_ms": k3_ms}

@@ -142,7 +142,12 @@ def banded_nw_cuda(reads: torch.Tensor, read_lens: torch.Tensor,
     out = launch_nw("hla_banded_nw_forward", reads, read_lens, refs, sc,
                     B, L, W)
     banded_nw_cuda.launches += 1
+    banded_nw_cuda.largest = max(banded_nw_cuda.largest,
+                                 (B * L * W, B, L, W))
     return out
 
 
 banded_nw_cuda.launches = 0
+# the launch with the most cells since the count was last zeroed:
+# (cells, B, L, W)
+banded_nw_cuda.largest = (0, 0, 0, 0)

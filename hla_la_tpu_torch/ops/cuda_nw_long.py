@@ -33,7 +33,12 @@ def banded_nw_long_cuda(reads: torch.Tensor, read_lens: torch.Tensor,
     out = launch_nw("hla_banded_nw_long_forward", reads, read_lens, refs,
                     sc, B, L, W)
     banded_nw_long_cuda.launches += 1
+    banded_nw_long_cuda.largest = max(banded_nw_long_cuda.largest,
+                                      (B * L * W, B, L, W))
     return out
 
 
 banded_nw_long_cuda.launches = 0
+# the launch with the most cells since the count was last zeroed:
+# (cells, B, L, W)
+banded_nw_long_cuda.largest = (0, 0, 0, 0)

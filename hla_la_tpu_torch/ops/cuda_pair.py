@@ -52,12 +52,28 @@ def pair_ll_diff_cuda(L: torch.Tensor,
     n_scratch = lib.lib.hla_pair_ll_scratch_floats(C, R, count)
     lib.check("hla_pair_ll_scratch_floats", max(0, -n_scratch))
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=L.device)
+    stream = torch.cuda.current_stream(L.device)
+    timed = pair_ll_diff_cuda.events is not None
+    if timed:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record(stream)
     rc = lib.lib.hla_pair_ll_diff(
         L.data_ptr(), C, R, out.data_ptr(), scratch.data_ptr(), n_scratch,
-        lo, count, torch.cuda.current_stream(L.device).cuda_stream)
+        lo, count, stream.cuda_stream)
     lib.check("hla_pair_ll_diff", rc)
     pair_ll_diff_cuda.launches += 1
+    pair_ll_diff_cuda.largest = max(pair_ll_diff_cuda.largest,
+                                    (C * C * R, C, R))
+    if timed:
+        end.record(stream)
+        pair_ll_diff_cuda.events.append((start, end))
     return out, rpad
 
 
 pair_ll_diff_cuda.launches = 0
+# the launch with the most cells since the count was last zeroed:
+# (cells, C, R)
+pair_ll_diff_cuda.largest = (0, 0, 0)
+# a list, while a caller wants each launch timed: (start, end) CUDA events
+# recorded around every launch are appended to it
+pair_ll_diff_cuda.events = None

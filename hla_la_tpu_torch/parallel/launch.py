@@ -13,6 +13,7 @@ import multiprocessing as mp
 import multiprocessing.connection as mp_connection
 import os
 import tempfile
+import time
 import traceback
 
 import torch
@@ -20,10 +21,12 @@ import torch
 from . import mesh as mesh_mod
 
 
-def _rank_entry(rank, world_size, init_method, device, timeout_s, fn, args,
-                conn):
+def _rank_entry(rank, world_size, init_method, device, timeout_s, fn,
+                args_conn, conn):
     torch.set_num_threads(1)
     try:
+        args = args_conn.recv()
+        args_conn.close()
         try:
             dev = mesh_mod.init_ranks(rank, world_size, init_method, device,
                                       timeout_s)
@@ -59,16 +62,29 @@ def run_ranks(fn, world_size: int, device: str = "cuda", args: tuple = (),
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as td:
         init_method = "file://" + os.path.join(td, "rendezvous")
-        procs, conns = [], []
+        procs, conns, arg_conns = [], [], []
         for rank in range(world_size):
             recv, send = ctx.Pipe(duplex=False)
+            arg_recv, arg_send = ctx.Pipe(duplex=False)
             p = ctx.Process(target=_rank_entry,
                             args=(rank, world_size, init_method, device,
-                                  timeout_s, fn, args, send))
+                                  timeout_s, fn, arg_recv, send))
             p.start()
             send.close()
+            arg_recv.close()
             procs.append(p)
             conns.append(recv)
+            arg_conns.append(arg_send)
+        # the arguments go to the ranks once all of them are starting: a
+        # start's own pickle must stay small, or each start waits for the
+        # previous rank to have imported its modules and read them
+        for arg_send in arg_conns:
+            try:
+                arg_send.send(args)
+            except OSError:
+                pass    # the rank ended before reading them: reported below
+            finally:
+                arg_send.close()
         results, errors = [None] * world_size, []
         pending = {conn: rank for rank, conn in enumerate(conns)}
         try:
@@ -105,8 +121,60 @@ def rank_full_step(m, L, W, reads, lens, refs, onehot, contrib):
     return mesh_mod.full_step(m, L, W)(reads, lens, refs, onehot, contrib)
 
 
+def rank_timed_full_step(m, L, W, reads, lens, refs, onehot, contrib,
+                         iters):
+    """full_step once (warm-up), then `iters` times on the host clock: the
+    last call's (scores, pair), the seconds of each timed call (each ends
+    with the gathered numpy result, so the devices have finished), and this
+    rank's kernel launches."""
+    from ..models.parallel_host import kernel_launches
+    step = mesh_mod.full_step(m, L, W)
+    out = step(reads, lens, refs, onehot, contrib)
+    secs = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = step(reads, lens, refs, onehot, contrib)
+        secs.append(time.perf_counter() - t0)
+    return out, secs, kernel_launches()
+
+
 def rank_pair_reduction(m, L):
     return mesh_mod.pair_ll_reduction_sharded(L, m)
+
+
+def rank_timed_pair_reduction(m, npy_path):
+    """The sharded pair reduction of the [C, R] matrix saved at `npy_path`
+    (each rank maps the file and reads its own share of it, rather than
+    every rank being sent the whole matrix) twice on this rank (cold, then
+    warm): rank 0's pair matrix, the walls, this rank's share (its range of
+    K3's tile list as (first, count), its reads as [lo, hi)), its K3
+    launches and, on a card, each warm launch's device milliseconds."""
+    import numpy as np
+
+    from ..models.parallel_host import kernel_launches
+    from ..ops.cuda_pair import pair_ll_diff_cuda
+    L = np.load(npy_path, mmap_mode="r")
+    C, R = L.shape
+    t0 = time.time()
+    mesh_mod.pair_ll_reduction_sharded(L, m)
+    cold = time.time() - t0
+    if m.device.type == "cuda":
+        pair_ll_diff_cuda.events = []
+    try:
+        t0 = time.time()
+        pair = mesh_mod.pair_ll_reduction_sharded(L, m)
+        warm = time.time() - t0
+    finally:
+        events, pair_ll_diff_cuda.events = pair_ll_diff_cuda.events, None
+    if events:
+        torch.cuda.synchronize(m.device)
+    t_lo, t_hi = mesh_mod._share(mesh_mod.pair_tiles(C), m.model_index,
+                                 m.shape["model"])
+    return {"rank": m.rank, "pair": pair if m.rank == 0 else None,
+            "cold_s": cold, "warm_s": warm, "tile_range": [t_lo, t_hi - t_lo],
+            "reads": list(mesh_mod._share(R, m.data_index, m.shape["data"])),
+            "launches": kernel_launches()["K3"],
+            "k3_ms": [s.elapsed_time(e) for s, e in events or ()]}
 
 
 def rank_sharded_nw(m, reads, lens, refs):

@@ -9,6 +9,7 @@ from .worlds import (LONG_READ_LENGTH, AsmWorld, CohortSample,
                      CohortWorld, DecoyWorld, KirWorld, LongBenchReads,
                      LongReadWorld, RealScaleWorld, TypingWorld,
                      ambiguous_q1, ambiguous_world, asm_world, bench_world,
-                     cohort_world, decoy_world, kir_world, load_levels,
-                     long_bench_reads, long_read_world, second_sample,
+                     cohort_world, decoy_world, e2e_world, imgt_long_reads,
+                     kir_world, load_levels, long_bench_reads,
+                     long_read_world, second_sample,
                      split_levels, typing_world, wgs_world, world_bam)

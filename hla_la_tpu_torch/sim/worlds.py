@@ -8,7 +8,11 @@ run's calls are held to.  Worlds are cached in a directory keyed on their
 parameters.
 
 - ``typing_world``: the recipe of ``stress_imgt.py``, targeted deep paired
-  100 bp reads over each gene window;
+  100 bp reads over each gene window (two loci, or with ``IMGT4_GENES``
+  the four of ``--loci4``); ``imgt_long_reads``: the long reads that its
+  ``--long`` mode draws over such a world's gene windows;
+- ``e2e_world``: ``tpu_e2e.py``'s small world, paired reads along the whole
+  of two haplotypes of a 20,000-level panel;
 - ``long_read_world``: unpaired 10 kb reads with ONT-like indels over a
   whole 24,000-column panel whose genes are class-I sized;
 - ``kir_world``: a linear-ALT package of 32 aligned haplotypes of a
@@ -55,7 +59,7 @@ from ..graph.package import GraphPackage
 from ..io.bam import (FLAG_PAIRED, FLAG_READ1, FLAG_READ2, FLAG_REVERSE,
                       BamRecord, BamWriter)
 from ..io.fasta import write_fasta
-from ..io.fastq import read_fastq, write_fastq
+from ..io.fastq import FastqRead, read_fastq, write_fastq
 from ..models.kir_package import build_kir_package
 from ..utils.config import LOCI_FOR_TYPING
 from .graph_sim import simulate_prg_package
@@ -69,6 +73,27 @@ IMGT_ALLELES = 2200
 IMGT_COVERAGE = 1250.0
 IMGT_SEED = 161803
 TRUTH_HAPS = (1, 2)
+# stress_imgt.py --loci4: four class-I-sized loci on a backbone of 8,000,
+# over the typing fan-out's real gate (50,000 aligned reads, 4 loci)
+IMGT4_GENES = {"A": (0.05, 0.185), "B": (0.29, 0.425),
+               "C": (0.53, 0.665), "DQB1": (0.76, 0.895)}
+IMGT4_BACKBONE = 8000
+# stress_imgt.py --long: ONT-like unpaired reads of log-normal length
+# (median 2,600) clipped to [1,500, 3,800] at 35x over each gene window
+# (+-600 columns), with 0.5% insertions and 0.5% deletions
+IMGT_LONG_MEDIAN = 2600
+IMGT_LONG_SIGMA = 0.25
+IMGT_LONG_CLIP = (1500, 3800)
+IMGT_LONG_COVERAGE = 35.0
+IMGT_LONG_INDEL = 0.005
+IMGT_LONG_FLANK = 600
+# tpu_e2e.py's small world: a 20,000-level panel of 6 haplotypes with its
+# default genes A and B, paired 100 bp reads at 20x per haplotype along
+# the whole of haplotypes 1 and 2
+E2E_SEED = 30303
+E2E_BACKBONE = 20_000
+E2E_HAPLOTYPES = 6
+E2E_COVERAGE = 20.0
 
 # the cohort world: S2's haplotypes, the locus at which its truth table
 # names a wrong allele, and the one contig of every world's BAM (a
@@ -366,13 +391,15 @@ def _write_bam_spec(graph: str) -> None:
 
 def typing_world(out_dir: str, n_alleles: int = IMGT_ALLELES,
                  coverage: float = IMGT_COVERAGE,
-                 backbone: int = IMGT_BACKBONE) -> TypingWorld:
+                 backbone: int = IMGT_BACKBONE,
+                 genes: dict = IMGT_GENES) -> TypingWorld:
     """Build (or reuse from `out_dir`) a world on a `backbone`-column panel
-    with `n_alleles` alleles per locus and paired 100 bp reads at
+    with `genes`, `n_alleles` alleles per locus and paired 100 bp reads at
     `coverage` per haplotype over each gene window (+-300 columns), from
     haplotypes 1 and 2."""
-    genes = IMGT_GENES
     root = os.path.join(out_dir, f"b{backbone}_a{n_alleles}_c{coverage:g}")
+    if genes != IMGT_GENES:
+        root += "_" + "-".join(genes)
 
     def make_world(truth):
         return TypingWorld(graph=os.path.join(root, "pkg"),
@@ -387,7 +414,102 @@ def typing_world(out_dir: str, n_alleles: int = IMGT_ALLELES,
         write_fastq(world.fastq2, [p.r2.to_fastq() for p in pairs])
         return truth, {"seed": IMGT_SEED, "backbone": backbone,
                        "alleles": n_alleles, "coverage": coverage,
-                       "pairs": len(pairs)}
+                       "genes": genes, "pairs": len(pairs)}
+
+    return _cached(root, make_world, build)
+
+
+def imgt_long_reads(world: TypingWorld) -> LongReadWorld:
+    """Build (or reuse from beside `world`'s reads) the long reads that
+    ``stress_imgt.py --long`` draws for a typing_world: the panel drawn
+    again from IMGT_SEED (not written: `world`'s package is it), then, on
+    the same generator, over each gene window (+-IMGT_LONG_FLANK columns) of
+    haplotypes 1 and 2, reads of log-normal length clipped to
+    IMGT_LONG_CLIP until IMGT_LONG_COVERAGE times the window is reached,
+    with IMGT_LONG_INDEL insertions and deletions
+    (``stress_imgt.py:231-267``)."""
+    root = os.path.dirname(world.graph)
+    with open(os.path.join(root, "world.json")) as fh:
+        made = json.load(fh)
+    genes = made.get("genes", IMGT_GENES)
+    long_root = os.path.join(root, "long")
+
+    def make_world(truth):
+        return LongReadWorld(graph=world.graph,
+                             fastq=os.path.join(long_root, "R_U.fq"),
+                             truth=truth)
+
+    def build(out):
+        rng = np.random.default_rng(IMGT_SEED)
+        sim = _panel_sim(rng, made["backbone"], genes, made["alleles"])
+        rs = ReadSimulator(rng, insertion_rate=IMGT_LONG_INDEL,
+                           deletion_rate=IMGT_LONG_INDEL)
+        windows = []
+        for locus in genes:
+            cols = [i for i, n in enumerate(sim.column_names)
+                    if f"_gene_{locus}_" in n]
+            windows.append((min(cols) - IMGT_LONG_FLANK,
+                            max(cols) + IMGT_LONG_FLANK))
+        reads = []
+        for h in TRUTH_HAPS:
+            seq, levels = sim.linearized(h)
+            for gi, (lo, hi) in enumerate(windows):
+                sel = np.nonzero((levels >= lo) & (levels <= hi))[0]
+                src = seq[sel[0]:sel[-1] + 1]
+                slv = levels[sel[0]:sel[-1] + 1]
+                made_bases, i = 0, 0
+                while made_bases < IMGT_LONG_COVERAGE * len(src):
+                    L = int(np.clip(rng.lognormal(np.log(IMGT_LONG_MEDIAN),
+                                                  IMGT_LONG_SIGMA),
+                                    IMGT_LONG_CLIP[0],
+                                    min(IMGT_LONG_CLIP[1], len(src) - 1)))
+                    rs.read_length = L
+                    start = int(rng.integers(0, max(1, len(src) - L)))
+                    r = rs._sequence_read(src, slv, start)
+                    if r is None:
+                        continue
+                    reads.append(FastqRead(f"lr_h{h}g{gi}:::{i}", r[0], r[1]))
+                    made_bases += L
+                    i += 1
+        write_fastq(out.fastq, reads)
+        return _planted(sim, TRUTH_HAPS), {
+            "seed": IMGT_SEED, "reads": len(reads),
+            "bases": sum(len(r.seq) for r in reads)}
+
+    return _cached(long_root, make_world, build)
+
+
+def e2e_world(out_dir: str, backbone: int = E2E_BACKBONE) -> TypingWorld:
+    """Build (or reuse from `out_dir`) tpu_e2e.py's world: a `backbone`
+    panel of E2E_HAPLOTYPES haplotypes with SNPs at 1% and its default
+    genes, and paired 100 bp reads (fragments of 300 +- 25, with errors) at
+    E2E_COVERAGE per haplotype along the whole of haplotypes 1 and 2
+    (``tpu_e2e.py:89-100``)."""
+    root = os.path.join(out_dir, f"e2e_b{backbone}")
+
+    def make_world(truth):
+        return TypingWorld(graph=os.path.join(root, "pkg"),
+                           fastq1=os.path.join(root, "R_1.fq"),
+                           fastq2=os.path.join(root, "R_2.fq"), truth=truth)
+
+    def build(world):
+        rng = np.random.default_rng(E2E_SEED)
+        sim = simulate_prg_package(rng, backbone_length=backbone,
+                                   n_haplotypes=E2E_HAPLOTYPES,
+                                   snp_rate=0.01)
+        rs = ReadSimulator(rng, read_length=100, fragment_mean=300,
+                           fragment_sd=25, with_error=True)
+        pairs = []
+        for h in TRUTH_HAPS:
+            seq, levels = sim.linearized(h)
+            pairs += rs.simulate_pairs_from_string(seq, levels,
+                                                   E2E_COVERAGE,
+                                                   name_prefix=f"h{h}")
+        sim.write_package(world.graph)
+        write_fastq(world.fastq1, [p.r1.to_fastq() for p in pairs])
+        write_fastq(world.fastq2, [p.r2.to_fastq() for p in pairs])
+        return _planted(sim, TRUTH_HAPS), {
+            "seed": E2E_SEED, "backbone": backbone, "pairs": len(pairs)}
 
     return _cached(root, make_world, build)
 

@@ -48,18 +48,23 @@ def _imports(path: Path) -> list[str]:
     return names
 
 
+# the root's twins of the JAX side's scripts, and each one's entry point
+TWINS = {"bench_torch": "main", "stress_wgs_torch": "main",
+         "stress_long_torch": "main", "stress_imgt_torch": "main",
+         "e2e_torch": "main", "bench_scaling_torch": "main",
+         "soak_torch": "soak_main"}
+
+
 @pytest.mark.parametrize("rel",
                          PORT_FILES + ["chip_smoke.py", "bench_nw.py",
-                                       "bench_workers.py", "bench_torch.py",
-                                       "stress_wgs_torch.py",
-                                       "stress_long_torch.py"])
+                                       "bench_workers.py"]
+                         + [f"{twin}.py" for twin in TWINS])
 def test_file_imports_neither_jax_nor_the_jax_package(rel):
     roots = {n.split(".")[0] for n in _imports(REPO / rel)}
     assert not roots & FORBIDDEN, (rel, roots & FORBIDDEN)
     if rel in PORT_FILES:   # the package stands without the root's scripts
         assert not roots & {"chip_smoke", "bench_nw", "bench_workers",
-                            "bench_torch", "stress_wgs_torch",
-                            "stress_long_torch"}, rel
+                            *TWINS}, rel
     text = (REPO / rel).read_text()
     assert "import_module" not in text and "__import__" not in text, rel
 
@@ -705,6 +710,25 @@ def test_no_fallback_in_the_device_path():
                       and getattr(getattr(c.func, "value", None), "id",
                                   None) not in HOST_INDEX_CLASSES}
             assert not called & DEVICE_CALLS, (path, node.lineno)
+
+
+@pytest.mark.parametrize("twin", sorted(TWINS))
+@pytest.mark.parametrize("argv", [[], ["--device", "cuda"]])
+def test_twin_raises_without_a_card_unless_told_cpu(twin, argv, monkeypatch,
+                                                    capsys):
+    """Each twin's entry point runs on the card by default: without one it
+    raises before any work (there is no fallback; ``--device cpu`` is the
+    one way onto the CPU, which the twins' own tests take)."""
+    import importlib
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    entry = getattr(importlib.import_module(twin), TWINS[twin])
+    with pytest.raises(RuntimeError, match="is_available"):
+        entry(argv)
+    assert capsys.readouterr().out == ""
+    if twin == "soak_torch":
+        import soak_torch
+        with pytest.raises(RuntimeError, match="is_available"):
+            soak_torch.run(1, 1000, "hla")
 
 
 def test_typers_raise_without_a_card_and_never_take_the_host_forward(

@@ -110,10 +110,18 @@ def test_stress_wgs_torch_agrees_with_stress_wgs_py(wgs_twin, tmp_path):
     assert f"({rec['pairs_aligned']}/{rec['pairs']} pairs aligned)" in \
         proc.stderr
 
-    got_dir = os.path.join(port_cache, "wgs_runs", "out_serial")
-    want_dir = cache / "out_serial"
+    assert_same_typing_output(
+        os.path.join(port_cache, "wgs_runs", "out_serial"),
+        cache / "out_serial", 17)
+
+
+def assert_same_typing_output(got_dir, want_dir, n_loci: int) -> None:
+    """Two typing runs' output directories hold the same files, each byte
+    for byte but the pair-posterior dumps and the bestguess tables, held
+    value by value: P and Q within 1e-6, LL within the pair reduction's
+    rtol 1e-6 / atol 1e-2, every other field equal."""
     names = sorted(os.listdir(want_dir))
-    assert sorted(os.listdir(got_dir)) == names and len(names) >= 17
+    assert sorted(os.listdir(got_dir)) == names and len(names) >= n_loci
     n_pp = 0
     for name in names:
         got, want = os.path.join(got_dir, name), os.path.join(want_dir, name)
@@ -128,8 +136,8 @@ def test_stress_wgs_torch_agrees_with_stress_wgs_py(wgs_twin, tmp_path):
         elif "bestguess" in name:
             g, w = _table(got), _table(want)
             assert len(g) == len(w) and g[0] == w[0], name
-            # two rows per locus (bestguess_G holds its header alone here)
-            assert name != "R1_bestguess.txt" or len(w) == 1 + 2 * 17
+            # two rows per locus (bestguess_G may hold its header alone)
+            assert name != "R1_bestguess.txt" or len(w) == 1 + 2 * n_loci
             for gr, wr in zip(g[1:], w[1:]):
                 assert len(gr) == len(wr), (name, gr, wr)
                 for i, (a, b) in enumerate(zip(gr, wr)):
@@ -140,4 +148,4 @@ def test_stress_wgs_torch_agrees_with_stress_wgs_py(wgs_twin, tmp_path):
         else:
             with open(got, "rb") as a, open(want, "rb") as b:
                 assert a.read() == b.read(), name
-    assert n_pp == 17
+    assert n_pp == n_loci
