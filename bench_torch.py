@@ -7,8 +7,8 @@ The world is bench.py's (``hla_la_tpu_torch.sim.bench_world``): a
 3,000,000-level panel of 8 haplotypes with genes A and B and ~30k paired
 101 bp reads from haplotypes 1 and 2, built once and cached under
 build/real_scale/.  The reads are aligned by min(CPUs, 8) worker processes
-(``ParallelAligner``; on a card each worker holds a context there and its
-share of the pointer budget) and typed by ``HLATyper.type_all`` with the
+(``ParallelAligner``: host-only workers whose NW calls this process's
+device server runs on the card) and typed by ``HLATyper.type_all`` with the
 warm workers as its pool; with ``--workers 1`` all of it runs in this
 process (``ReadAligner``), as bench.py chooses its engine, which is the run
 to profile by layer (``python -m cProfile -s cumtime bench_torch.py
@@ -21,9 +21,9 @@ alignments' truth accuracy over 0.95 and the calls exactly the planted
 alleles at A and B; a broken pipeline prints no numbers.  The last stdout
 line is one JSON object (median and best end-to-end reads/s, the window's
 reads over all its seconds, per-rep seconds, the engine's start and the
-warm-up passes, the calls, launches of K1 and K3 in the workers and in this
-process, the NW jobs on the card); the GPU probe (``gpu_check.run``)
-follows on stderr.
+warm-up passes, the calls, launches of K1 and K3 made for the workers by the
+device server and in this process in all, the NW jobs on the card); the
+GPU probe (``gpu_check.run``) follows on stderr.
 The kernels are built first, outside every timed window.
 """
 
@@ -62,8 +62,9 @@ def bench(world, device, n_workers: int, align_reps=None,
     `device`: (warm-up, measured) align passes in `n_workers` workers,
     then type passes with them as the typing pool (default: the module's
     ALIGN_* and TYPE_* counts).  Asserts the gates; returns the per-rep
-    seconds, the calls, the truth accuracy and the launches (K1 and K3 in
-    the workers, and in this process)."""
+    seconds, the calls, the truth accuracy and the launches (K1 and K3
+    made for the workers by this process's device server, and all of this
+    process's)."""
     align_reps = align_reps or (ALIGN_WARMUP, ALIGN_REPS)
     type_reps = type_reps or (TYPE_WARMUP, TYPE_REPS)
     from hla_la_tpu_torch import bench_common as bc
@@ -156,9 +157,20 @@ def bench(world, device, n_workers: int, align_reps=None,
             "pairs_aligned": len(aligned), "truth_accuracy": accuracy,
             "calls": calls,
             "launches_workers": {
-                "K1": stats.extras.get("worker_launches_K1", 0),
-                "K3": typer.worker_launches["K3"]},
+                "K1": stats.extras.get("served_launches_K1", 0),
+                "K3": typer.served_launches["K3"]},
             "launches_parent": {"K1": here["K1"], "K3": here["K3"]},
+            # the host-only workers: each one's CUDA state after its last
+            # align and type task, and what the device server ran for them
+            "workers_cuda_initialized": (
+                [r["cuda_initialized"] for r in pool.workers.values()]
+                + [r["cuda_initialized"] for r in typer.worker_runs]
+                if pool is not None else []),
+            "workers_torch_imported": (
+                [r["torch_imported"] for r in pool.workers.values()]
+                + [r["torch_imported"] for r in typer.worker_runs]
+                if pool is not None else []),
+            "served": pool.server.served if pool is not None else None,
             "n_chain_extensions": jobs, f"nw_jobs_on_{dev}": on_dev,
             "loci": {r.locus: (r.n_clusters, r.n_reads_used) for r in res}}
 
@@ -217,6 +229,9 @@ def main(argv=None) -> int:
         "calls": st["calls"],
         "launches_workers": st["launches_workers"],
         "launches_parent": st["launches_parent"],
+        "workers_cuda_initialized": st["workers_cuda_initialized"],
+        "workers_torch_imported": st["workers_torch_imported"],
+        "served": st["served"],
         "n_chain_extensions": st["n_chain_extensions"],
         f"nw_jobs_on_{args.device}": st[f"nw_jobs_on_{args.device}"],
         "device": args.device, "card": card}), flush=True)

@@ -89,16 +89,19 @@ and (t) run before (e), while the IMGT-scale world is still being built;
       nearly all of the paralog's, the same calls), and the ambiguous world
       (a Q1 strictly inside (0.05, 0.95); Q1/Q2 within 1e-3);
   (p) worker processes and align shards on cuda: ``--maxThreads 4`` on the
-      world of (e) (every worker holds a context on the card): every
-      output file byte-equal to the one-process run of (e), every NW job on
-      the card summed over the workers, K1 launched in the workers; then,
+      world of (e) (host-only workers: this process's device server runs
+      their NW calls, and the card holds one context): every output file
+      byte-equal to the one-process run of (e), every NW job on the card,
+      the workers' jobs all run and K1 launched for them by the server, no
+      worker with CUDA initialised (ready or after its last task), and no
+      worker among nvidia-smi's compute apps while the pool is up; then,
       on the small world of (f), ``run_hla_typing`` with four workers and
-      the typing workers' gate lowered, so that K3 is launched in the
+      the typing workers' gate lowered, so that K3 is launched for the
       workers too, and ``--nHosts 2 --hostIdx 0/1 --shardDir`` and
       ``--mergeShards``, each byte-equal to (f)'s one-process run (both on
       the small world since (z) runs the fan-out at IMGT scale: the time
       limit).  One-process and worker walls are printed side by side, with
-      the time the workers took to be ready;
+      each worker's ready split;
   (q) the sharded backend on the one card: ``ShardedNW`` bit-equal to
       ``NWRunner.run`` and ``pair_ll_reduction_sharded`` within rtol 1e-6 /
       atol 1e-2 of the one-device reduction, on an NCCL group of one rank
@@ -141,41 +144,45 @@ and (t) run before (e), while the IMGT-scale world is still being built;
   (w) bench.py's real-PRG-scale world (``sim.bench_world``: 3,000,000
       levels, genes A and B, ~30k pairs) through bench_torch.py's objects,
       one align pass and one type pass: truth accuracy over 0.95, the calls
-      exactly the planted alleles, K1 launched in the workers, K3 in this
-      process (two loci: under the typing fan-out's gate), every NW job on
-      the card; then K1 at the workers' call shape against its plain
-      version;
+      exactly the planted alleles, K1 launched for the host-only workers
+      and K3 in this process (two loci: under the typing fan-out's gate),
+      every NW job on the card, no worker with CUDA initialised; then K1
+      at the workers' call shape against its plain version;
   (x) stress_wgs.py's world with all 17 loci (``sim.wgs_world``) at a cut
       coverage of WGS_SMOKE_COVERAGE (3,000,000 levels and 17 loci kept;
       ~60k pairs, over the typing fan-out's gate of 50,000 aligned reads;
       stress_wgs_torch.py carries the full 12x): typed serially and with the
-      fan-out, byte-identical, exact at every locus, K1 launched in the
-      align workers and K3 in the typing workers; then K1 at the workers'
-      call shape and K3 at the largest locus's C x R;
+      fan-out, byte-identical, exact at every locus, K1 launched for the
+      align workers and K3 for the typing workers (all host-only, served
+      by this process); then K1 at the workers' call shape and K3 at the
+      largest locus's C x R;
   (y) stress_long.py's reads of the bench panel (``sim.long_bench_reads``
       at a cut coverage of LONG_SMOKE_COVERAGE: ~9 Mb of 2-48 kb reads and
       the eight 60-90 kb reads cut at 50 kb) typed
       through run_hla_typing in long-read mode with 4 workers: the planted
       alleles called, truth accuracy over 0.9, every NW job on the card, K2
-      launched in the workers; then K3 at the largest locus's C x R.
+      launched for the host-only workers; then K3 at the largest locus's
+      C x R.
   (z) ``stress_imgt_torch.py --loci4 --sharded`` in a process of its own,
       started with this one and waiting until (z) (its peak-memory check
       reads ru_maxrss, which starts from the forking process's peak): four
       loci of 2,200 alleles on a backbone of 8,000 (~83,000 pairs at
       1,250x) aligned in 8 workers, typed serially and with the per-locus
       fan-out, which must pass its real gate (50,000 aligned reads, 4
-      loci) and run in 4 typing workers with K3 launched there once per
-      locus at C >= 2,000, each launch timed; the script's checks (planted
-      alleles in the called clusters, Q1 > 0.9, R floors, the full pair
-      dumps, peak RSS, the fan-out byte-identical to serial); then K1 at the
-      workers' call shape and K3 at one locus's C x R against their plain
-      versions, and the script's kernel section at the run's largest C x R
-      (K3 cold and warm, the host's native kernel, numpy on a slice of
+      loci) and run in 4 host-only typing workers with K3 launched for
+      them once per locus at C >= 2,000, each launch timed in the device
+      server; the script's checks (planted alleles in the called
+      clusters, Q1 > 0.9, R floors, the full pair dumps, peak RSS, the
+      fan-out byte-identical to serial); then K1 at the workers' call
+      shape and K3 at one locus's C x R against their plain versions,
+      and the script's kernel section at the run's largest C x R (K3 cold
+      and warm, the host's native kernel, numpy on a slice of
       IMGT_NUMPY_SLICE_R reads, extrapolated), held to each other;
   (aa) stress_imgt.py --long: 1.5-3.8 kb reads of the world of (e)
-      (``sim.imgt_long_reads``) aligned in long-read mode by the workers
-      and typed in long-read mode at C >= 2,000: the planted alleles in the
-      called clusters, every NW job on the card; K2 bit-identical to its
+      (``sim.imgt_long_reads``) aligned in long-read mode by the host-only
+      workers (K2 launched for them) and typed in long-read mode at C >=
+      2,000: the planted alleles in the called clusters, every NW job on
+      the card; K2 bit-identical to its
       plain version at the run's largest NW call, K3 at its largest locus;
   (ab) from the same run, ``--sharded``: the pair reduction at the C x R of
       (z) on 8 ranks sharing the card (model 2 x data 4, gloo), within rtol
@@ -826,8 +833,12 @@ def read_table(path: str) -> list[list[str]]:
 def run_port(device: str, world, out_dir: str, extra=()) -> dict:
     """Type `world` with the port's CLI on `device` (plus the `extra`
     arguments); the kernels' launch counters are zeroed just before the run
-    and read just after it.  Launches made in worker processes are read
-    from the run's summed statistics ("worker_launches")."""
+    and read just after it.  With worker processes, every launch is still
+    this process's: its device server runs the host-only workers' device
+    calls, and the launches it made for them are read from the run's
+    summed statistics ("served_launches"), with the workers' ready lines
+    and their reports."""
+    from hla_la_tpu_torch.bench_common import worker_lines
     from hla_la_tpu_torch.cli import main as port_main
     from hla_la_tpu_torch.ops.cuda_nw import banded_nw_cuda
     from hla_la_tpu_torch.ops.cuda_nw_long import banded_nw_long_cuda
@@ -866,22 +877,97 @@ def run_port(device: str, world, out_dir: str, extra=()) -> dict:
     hla = os.path.join(out_dir, "hla")
     dropped = re.search(r"decoy_dropped_pairs: (\d+)", text)
     return {"dir": out_dir, "launches": launches, "wall_s": wall,
-            "worker_launches": {
+            "log": text,
+            "served_launches": {
                 k: int(n) for k, n in
-                re.findall(r"worker_launches_(K\d): (\d+)", text)},
+                re.findall(r"served_launches_(K\d): (\d+)", text)},
             "decoy_dropped_pairs": int(dropped.group(1)) if dropped else 0,
-            "workers_ready": [
-                tuple(float(x) for x in m) for m in re.findall(
-                    r"alignment worker \d+ ready on \S+ ([0-9.]+) s after "
-                    r"the pool was made: process start and imports "
-                    r"([0-9.]+) s, package and aligner ([0-9.]+) s, device "
-                    r"context ([0-9.]+) s", text)],
+            **worker_lines(text),
             "bestguess": read_table(os.path.join(hla, "R1_bestguess.txt")),
             "align_s": float(m_al.group(5)),
             "reads_per_s": float(m_al.group(6)),
             "pairs": int(m_al.group(2)), "unpaired": int(m_al.group(4)),
             "nw_jobs": nw_jobs, "type_s": float(m_ty.group(2)),
             "loci": {lc: (int(c), int(r)) for lc, c, r in loci}}
+
+
+def check_host_only(res: dict, n_workers: int, kernel: str,
+                    tag: str) -> None:
+    """The checks of a run with `n_workers` alignment workers: every one
+    was ready and stayed off CUDA, without even importing torch (ready, and
+    after its last task), the
+    device server ran `kernel` for them and all the NW jobs they sent, and
+    every NW job of the run ran on the card (run_port checks that)."""
+    if len(res["workers_ready"]) != n_workers:
+        fail(f"{tag}: {len(res['workers_ready'])} of {n_workers} workers "
+             f"reported ready")
+    if len(res["workers_cuda"]) <= n_workers \
+            or set(res["workers_cuda"]) != {"False"} \
+            or set(res["workers_torch"]) != {"False"}:
+        fail(f"{tag}: the workers' CUDA states {res['workers_cuda']}, torch "
+             f"imported {res['workers_torch']}")
+    server, served = res["server"], res["served_launches"]
+    if server is None or served.get(kernel, 0) <= 0 \
+            or server["launches"][kernel] != served[kernel] \
+            or server["nw_jobs"] != res["served_nw_jobs"] \
+            or not 0 < server["nw_jobs"] <= res["nw_jobs"]:
+        fail(f"{tag}: the device server's record {server}, the workers' "
+             f"served launches {served} and NW jobs "
+             f"{res['served_nw_jobs']} of {res['nw_jobs']}")
+
+
+def check_twin_workers(st: dict, kernels, tag: str) -> None:
+    """A twin's record of a run with worker processes: every worker stayed
+    off CUDA to its last task, and the device server launched each of
+    `kernels` for them and ran every NW job the align workers counted."""
+    cuda, served = st["workers_cuda_initialized"], st["served"]
+    if not cuda or any(cuda) or any(st["workers_torch_imported"]) \
+            or served is None \
+            or any(served["launches"][k] <= 0 for k in kernels) \
+            or not 0 < served["nw_jobs"] <= st["n_chain_extensions"]:
+        fail(f"{tag}: the workers' CUDA states {cuda}, torch imported "
+             f"{st['workers_torch_imported']}, the device server's record "
+             f"{served} for {st['n_chain_extensions']} NW jobs")
+    print(f"{tag}: {len(cuda)} worker reports, none with torch imported or "
+          f"CUDA initialised; "
+          f"the device server ran {served['requests']} requests, "
+          f"{served['nw_jobs']} NW jobs, launches {served['launches']}")
+
+
+@contextlib.contextmanager
+def compute_apps_watch(poll_s: float = 1.0):
+    """What ``nvidia-smi --query-compute-apps=pid`` lists before the block
+    ("before": one pid per context on the card) and, polled every
+    `poll_s`, while it runs ("during": every pid seen; "most": the most
+    contexts listed at once)."""
+    import threading
+
+    def query() -> list:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout
+        return [int(x) for x in out.split() if x.isdigit()]
+
+    before = query()
+    seen = {"before": before, "during": set(before), "most": len(before),
+            "polls": 0}
+    done = threading.Event()
+
+    def poll():
+        while not done.wait(poll_s):
+            pids = query()
+            seen["during"] |= set(pids)
+            seen["most"] = max(seen["most"], len(pids))
+            seen["polls"] += 1
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        yield seen
+    finally:
+        done.set()
+        thread.join()
 
 
 def run_action(action: str, device: str, world, out_dir: str) -> dict:
@@ -1092,6 +1178,8 @@ def kernel_records() -> dict:
     workers = "short reads in 4 worker processes, phase (p)"
     typing_workers = "typing workers, small world, phase (p)"
     ranks = "short reads on 4 ranks (--sharded 4), phase (q)"
+    served_align = "parent, for the host-only align workers"
+    served_typing = "parent, for the host-only typing workers"
     return {"nw": nw, "pair": pair, "nw_long": nw_long,
             "pair_long": {**pair, "path": long_},
             "nw_kir": {**nw, "path": kir}, "pair_kir": {**pair, "path": kir},
@@ -1111,10 +1199,10 @@ def kernel_records() -> dict:
             "pair_wgs": {**pair, "path": wgs},
             "nw_split": {**nw_long, "path": split},
             "pair_split": {**pair, "path": split},
-            "nw_imgt4": {**nw, "path": imgt4, "ran_in": "align workers"},
-            "pair_imgt4": {**pair, "path": imgt4, "ran_in": "typing workers"},
+            "nw_imgt4": {**nw, "path": imgt4, "ran_in": served_align},
+            "pair_imgt4": {**pair, "path": imgt4, "ran_in": served_typing},
             "nw_imgt_long": {**nw_long, "path": imgt_long,
-                             "ran_in": "align workers"},
+                             "ran_in": served_align},
             "pair_imgt_long": {**pair, "path": imgt_long, "ran_in": "parent"},
             "pair_ranks8": {**pair, "path": ranks8, "ran_in": "8 ranks"},
             "nw_e2e": {**nw, "path": e2e, "ran_in": "parent"},
@@ -1818,41 +1906,60 @@ def worker_phases(one_process: dict, rec: dict) -> None:
 
     phase("(p) --maxThreads 4 on cuda, IMGT-scale world; typing workers and "
           "align shards, small world")
-    res = run_port("cuda", world, os.path.join(runs, "workers"),
-                   ("--maxThreads", "4"))
+    # nvidia-smi's compute apps while the pool is up: the workers are
+    # host-only, so none of them may appear there
+    with compute_apps_watch() as apps:
+        res = run_port("cuda", world, os.path.join(runs, "workers"),
+                       ("--maxThreads", "4"))
     n = same_files(res["dir"], one["dir"], "--maxThreads 4")
-    if res["worker_launches"].get("K1", 0) <= 0 or res["launches"]["K3"] <= 0:
-        fail(f"--maxThreads 4: launches in the workers "
-             f"{res['worker_launches']}, in the parent {res['launches']}")
+    check_host_only(res, 4, "K1", "--maxThreads 4")
+    if res["launches"]["K1"] < res["served_launches"]["K1"] \
+            or res["launches"]["K3"] <= 0:
+        fail(f"--maxThreads 4: launches here {res['launches']}, of them "
+             f"served for the workers {res['served_launches']}")
+    if apps["most"] > len(apps["before"]) \
+            or apps["during"] - set(apps["before"]) \
+            or set(res["worker_pids"]) & apps["during"]:
+        fail(f"--maxThreads 4: nvidia-smi listed up to {apps['most']} "
+             f"contexts, pids {sorted(apps['during'])}, while the pool was "
+             f"up, {apps['before']} before it (the workers "
+             f"{res['worker_pids']})")
     report_run("port on cuda, 4 workers", res)
     print(f"--maxThreads 4: {n} files byte-equal to the one-process run; "
-          f"all {res['nw_jobs']} NW jobs on the card; K1 launches in the "
-          f"workers {res['worker_launches']['K1']} (parent "
-          f"{res['launches']['K1']}: the insert-size estimate); one process "
-          f"vs 4 workers: align {one['align_s']:.3f} vs {res['align_s']:.3f} "
-          f"s, type {one['type_s']:.3f} vs {res['type_s']:.3f} s, whole CLI "
+          f"all {res['nw_jobs']} NW jobs on the card, {res['served_nw_jobs']} "
+          f"of them sent by the host-only workers to this process's device "
+          f"server ({res['server']['requests']} requests), which launched "
+          f"K1 {res['served_launches']['K1']} times for them (K1 here in all "
+          f"{res['launches']['K1']}: the rest is the insert-size estimate); "
+          f"every worker's CUDA initialised: {res['workers_cuda']} (ready, "
+          f"then after its last task); nvidia-smi's compute apps: "
+          f"{apps['before']} before the pool, at most {apps['most']} "
+          f"contexts (pids {sorted(apps['during'])}) in {apps['polls']} "
+          f"polls while it was up (this process is pid {os.getpid()} in its "
+          f"namespace, the workers "
+          f"{res['worker_pids']}); one process vs 4 workers: align "
+          f"{one['align_s']:.3f} vs {res['align_s']:.3f} s, type "
+          f"{one['type_s']:.3f} vs {res['type_s']:.3f} s, whole CLI "
           f"{one['wall_s']:.3f} vs {res['wall_s']:.3f} s")
     ready = res["workers_ready"]
-    if len(ready) != 4:
-        fail(f"--maxThreads 4: {len(ready)} workers reported ready")
     last = max(r[0] for r in ready)
-    print(f"the 4 workers were ready {min(r[0] for r in ready):.1f}-"
-          f"{last:.1f} s after the pool was made (process start and imports "
-          f"{max(r[1] for r in ready):.1f} s, package, aligner and the "
-          f"process's first CUDA call {max(r[2] for r in ready):.1f} s, "
-          f"device context {max(r[3] for r in ready):.1f} s at most); the "
-          f"{res['pairs']} pairs then took {res['align_s'] - last:.3f} s "
+    print(f"the 4 workers were ready {sorted(r[0] for r in ready)} s after "
+          f"the pool was made (process start and imports "
+          f"{sorted(r[1] for r in ready)} s, connection to the device server "
+          f"{sorted(r[2] for r in ready)} s, package and aligner "
+          f"{sorted(r[3] for r in ready)} s); the {res['pairs']} pairs then "
+          f"took {res['align_s'] - last:.3f} s "
           f"({one['align_s'] / max(res['align_s'] - last, 1e-9):.2f} times "
           f"the one-process rate)")
-    rec["nw_workers"]["launches"] = res["worker_launches"]["K1"]
+    rec["nw_workers"]["launches"] = res["served_launches"]["K1"]
     # the workers' NW calls: a chunk of 256 pairs' jobs each
-    check_nw(round(res["nw_jobs"] / res["worker_launches"]["K1"]), 101, 32,
-             rec["nw_workers"])
+    check_nw(round(res["served_nw_jobs"] / res["served_launches"]["K1"]),
+             101, 32, rec["nw_workers"])
 
     # run_hla_typing on the small world with the typing workers' gate
     # lowered (its two loci and few reads are under the default): K3 is
-    # then launched in the workers.  (z) runs the fan-out through its real
-    # gate at four IMGT-scale loci
+    # then launched for the workers too.  (z) runs the fan-out through its
+    # real gate at four IMGT-scale loci
     log = io.StringIO()
     out_dir = os.path.join(runs, "typing_workers")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -1868,14 +1975,22 @@ def worker_phases(one_process: dict, rec: dict) -> None:
                 min_loci_for_typing_workers=2)))
     wall = time.perf_counter() - t0
     same_files(out_dir, small_one["dir"], "typing workers")
-    m = re.search(r"in typing workers: K3 (\d+)", log.getvalue())
-    if not m or int(m.group(1)) <= 0 or pair_ll_diff_cuda.launches != 0:
-        fail(f"typing workers: K3 launches in the workers "
-             f"{m and m.group(1)}, in the parent {pair_ll_diff_cuda.launches}")
+    m = re.search(r"of them served for typing workers: K3 (\d+)",
+                  log.getvalue())
+    cuda = re.findall(r"alignment worker \d+: CUDA initialised (\w+) after "
+                      r"its last task", log.getvalue())
+    if not m or int(m.group(1)) <= 0 \
+            or pair_ll_diff_cuda.launches != int(m.group(1)) \
+            or not cuda or set(cuda) != {"False"}:
+        fail(f"typing workers: K3 launches served for the workers "
+             f"{m and m.group(1)}, here in all {pair_ll_diff_cuda.launches}; "
+             f"the workers' CUDA states {cuda}")
     rec["pair_workers"]["launches"] = int(m.group(1))
     print(f"typing workers: byte-equal to the one-process run; K3 launched "
-          f"{m.group(1)} times in the workers, never in the parent; "
-          f"run_hla_typing {wall:.3f} s")
+          f"{m.group(1)} times by the device server for the host-only "
+          f"workers (every K3 launch of the run); the workers' CUDA "
+          f"initialised after their last task: {cuda}; run_hla_typing "
+          f"{wall:.3f} s")
     C, R = max(small_one["loci"].values(), key=lambda cr: cr[1])
     check_pair(C, R, rec["pair_workers"])
 
@@ -2043,17 +2158,20 @@ def real_scale_phases(rec: dict) -> None:
     except AssertionError as exc:
         fail(f"bench world: {exc}")
     lw, lp = st["launches_workers"], st["launches_parent"]
-    if lw["K1"] <= 0 or lp["K3"] + lw["K3"] <= 0:
-        fail(f"bench world: launches in the workers {lw}, here {lp}")
+    if lw["K1"] <= 0 or lp["K1"] < lw["K1"] or lp["K3"] <= 0:
+        fail(f"bench world: launches here {lp}, of them for the workers "
+             f"{lw}")
+    check_twin_workers(st, ("K1",), "bench world")
     print(f"bench world ({world.n_levels} levels, {st['n_reads'] // 2} "
           f"pairs, {n_workers} workers): align {st['align_s'][0]:.3f} s "
           f"({st['n_reads'] / st['align_s'][0]:.1f} reads/s), type "
           f"{st['type_s'][0]:.3f} s; truth accuracy "
-          f"{st['truth_accuracy']:.4f}; calls {st['calls']}; launches in the "
-          f"workers {lw}, here {lp}; all {st['n_chain_extensions']} NW jobs "
-          f"on the card; C x R {st['loci']}")
+          f"{st['truth_accuracy']:.4f}; calls {st['calls']}; launches here "
+          f"{lp}, of them for the host-only workers {lw}; all "
+          f"{st['n_chain_extensions']} NW jobs on the card; C x R "
+          f"{st['loci']}")
     rec["nw_bench"]["launches"] = lw["K1"]
-    rec["pair_bench"]["launches"] = lp["K3"] + lw["K3"]
+    rec["pair_bench"]["launches"] = lp["K3"]
     check_nw(round(st["n_chain_extensions"] / lw["K1"]), 101, 32,
              rec["nw_bench"])
     C, R = max(st["loci"].values(), key=lambda cr: cr[1])
@@ -2075,10 +2193,11 @@ def real_scale_phases(rec: dict) -> None:
           f"serial {st['type_serial_s']:.3f} s, fan-out "
           f"{st['type_fanout_s']:.3f} s over {st['typing_workers']} workers; "
           f"{st['files']} files byte-identical; calls exact at every locus; "
-          f"launches here {st['launches_parent']}, in the workers "
-          f"{st['launches_workers']}; C x R {st['loci']}")
-    if st["launches_workers"]["K1"] <= 0:
-        fail(f"WGS world: K1 launches in the workers {st['launches_workers']}")
+          f"launches here {st['launches_parent']}, of them for the "
+          f"host-only workers {st['launches_workers']}; C x R {st['loci']}")
+    if st["launches_workers"]["K1"] <= 0 or st["launches_workers"]["K3"] <= 0:
+        fail(f"WGS world: launches for the workers {st['launches_workers']}")
+    check_twin_workers(st, ("K1", "K3"), "WGS world")
     rec["nw_wgs"]["launches"] = st["launches_workers"]["K1"]
     rec["pair_wgs"]["launches"] = st["launches_workers"]["K3"]
     check_nw(round(st["n_chain_extensions"] / st["launches_workers"]["K1"]),
@@ -2101,11 +2220,13 @@ def real_scale_phases(rec: dict) -> None:
     if st["align_workers"] != 4 or st["launches_workers"]["K2"] <= 0:
         fail(f"long reads: {st['align_workers']} align workers, launches "
              f"{st['launches_workers']}")
+    check_twin_workers(st, ("K2",), "long reads of the bench panel")
     print(f"long reads of the bench panel: {st['reads']} reads "
           f"({st['reads_over_split']} over 50 kb) -> {st['chunks']} chunks, "
           f"{st['mb']:.1f} Mb; whole run {st['wall_s']:.3f} s in 4 workers; "
           f"truth accuracy {st['truth_accuracy']:.4f}; calls {st['calls']}; "
-          f"K2 launches in the workers {st['launches_workers']['K2']} (here "
+          f"K2 launches for the host-only workers "
+          f"{st['launches_workers']['K2']} (here in all "
           f"{st['launches_parent']['K2']}), K3 "
           f"{st['launches_parent']['K3']}; longest NW job L = "
           f"{st['longest_nw_job_L']}; all {st['n_chain_extensions']} NW jobs "
@@ -2153,7 +2274,8 @@ def imgt_phases(rec: dict) -> None:
             or lw["K1"] <= 0:
         fail(f"--loci4 fan-out: ran {st['fanout_ran']} in "
              f"{st['typing_workers']} workers (gate lowered "
-             f"{st['fanout_gate_lowered']}), launches in the workers {lw}")
+             f"{st['fanout_gate_lowered']}), launches for the workers {lw}")
+    check_twin_workers(st, ("K1",), "--loci4")
     print(f"--loci4 world ({st['pairs']} pairs, {st['pairs_aligned']} "
           f"aligned): align {st['align_s']:.3f} s in {st['align_workers']} "
           f"workers ({st['reads_per_s']:.1f} reads/s; pool and warm-up "
@@ -2162,8 +2284,9 @@ def imgt_phases(rec: dict) -> None:
           f"in {st['typing_workers']} workers through the real gate "
           f"{st['fanout_gate']}, ready after "
           f"{[round(r['ready_s'], 2) for r in runs]} s, done after "
-          f"{[round(r['done_s'], 2) for r in runs]} s; K3 per launch in "
-          f"them {[round(ms, 3) for ms in worker_ms]} ms; {st['files']} files "
+          f"{[round(r['done_s'], 2) for r in runs]} s; K3 per launch for "
+          f"them (timed in the device server) "
+          f"{[round(ms, 3) for ms in worker_ms]} ms; {st['files']} files "
           f"byte-identical; peak RSS {st['peak_rss_gb']:.2f} GB; calls "
           f"{st['calls']}; C x R {st['loci']}")
     rec["nw_imgt4"]["launches"] = lw["K1"]
@@ -2212,12 +2335,13 @@ def imgt_phases(rec: dict) -> None:
         fail(f"--long: {exc}")
     k2 = st["launches_workers"]["K2"]
     if k2 <= 0:
-        fail(f"--long: K2 launches in the workers {st['launches_workers']}")
+        fail(f"--long: K2 launches for the workers {st['launches_workers']}")
+    check_twin_workers(st, ("K2",), "--long")
     print(f"--long: {st['reads']} reads ({st['mb']:.2f} Mb, longest "
           f"{st['longest_read']}), {st['aligned']} aligned in "
           f"{st['align_s']:.3f} s (pool {st['pool_s']:.1f} s), typed in "
           f"{st['type_s']:.3f} s; calls {st['calls']}; C x R {st['loci']}; "
-          f"K2 {k2} launches in the workers, K3 "
+          f"K2 {k2} launches for the host-only workers, K3 "
           f"{st['launches_parent']['K3']} here; all "
           f"{st['n_chain_extensions']} NW jobs on the card")
     # an unpaired read's jobs span the read: the largest call holds the

@@ -108,6 +108,41 @@ def counter(log: str, key: str) -> int:
     return int(found[-1]) if found else 0
 
 
+def worker_lines(text: str) -> dict:
+    """What a run's log says of its alignment workers and of the device
+    server that ran their device calls: each worker's ready split
+    (seconds after the pool was made; process start and imports, the
+    connection to the server, package and aligner), pid, whether it had
+    imported torch and its CUDA state when ready, and both again after its
+    last task, the NW jobs they
+    sent, and the server's own count of requests, NW jobs and launches."""
+    ready = re.findall(
+        r"alignment worker (\d+) ready, host-only, served on \S+ ([0-9.]+) "
+        r"s after the pool was made: process start and imports ([0-9.]+) "
+        r"s, connection to the device server ([0-9.]+) s, package and "
+        r"aligner ([0-9.]+) s; torch imported: (\w+), CUDA initialised: "
+        r"(\w+)", text)
+    server = re.search(
+        r"device server on \S+: (\d+) requests from (\d+) workers, (\d+) "
+        r"NW jobs, launches K1 (\d+), K2 (\d+), K3 (\d+)", text)
+    jobs = re.search(r"served_nw_jobs: (\d+)", text)
+    return {
+        "workers_ready": [tuple(float(x) for x in m[1:5]) for m in ready],
+        "worker_pids": [int(m[0]) for m in ready],
+        "workers_torch": [m[5] for m in ready] + re.findall(
+            r"after its last task \(torch imported: (\w+)\)", text),
+        "workers_cuda": [m[6] for m in ready] + re.findall(
+            r"alignment worker \d+: CUDA initialised (\w+) after its last "
+            r"task", text),
+        "served_nw_jobs": int(jobs.group(1)) if jobs else 0,
+        "server": ({"requests": int(server.group(1)),
+                    "workers": int(server.group(2)),
+                    "nw_jobs": int(server.group(3)),
+                    "launches": dict(zip(("K1", "K2", "K3"),
+                                         map(int, server.groups()[3:])))}
+                   if server else None)}
+
+
 def sync(device) -> None:
     if resolve(device).type == "cuda":
         torch.cuda.synchronize()

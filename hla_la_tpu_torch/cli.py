@@ -88,8 +88,8 @@ def main(argv=None, mesh=None) -> int:
                     choices=["", "ont2d", "pacbio"])
     ap.add_argument("--maxThreads", type=int, default=1,
                     help="worker processes for alignment and, at WGS scale, "
-                         "per-locus typing; each holds a context on "
-                         "--device")
+                         "per-locus typing; host-only: this process runs "
+                         "their device calls on --device")
     ap.add_argument("--outputDirectory", default=None)
     ap.add_argument("--moreReferencesDir", default=None)
     ap.add_argument("--ref", help="reference genome FASTA (required to "

@@ -10,7 +10,8 @@ off), because the reference's likelihood dots are full float32
 from __future__ import annotations
 
 import numpy as np
-import torch
+
+from ._lazy import torch
 
 
 def resolve(device: str | torch.device) -> torch.device:

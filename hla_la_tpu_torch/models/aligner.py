@@ -26,8 +26,8 @@ import math
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
+from .._lazy import torch
 from ..device import resolve
 from ..graph.package import GraphPackage
 from ..io.fastq import FastqRead
@@ -116,39 +116,52 @@ class NWRunner:
             self.scratch[name] = buf
         return buf[:need].view(dtype).reshape(shape)
 
-    def run(self, reads_arr, lens_arr, refs_arr, pointers: bool = True):
+    def run(self, reads_arr, lens_arr, refs_arr, pointers: bool = True,
+            out=None):
         """One forward call: (score f32, end_k i32, end_state i32, pointers
         u8 [B, L + 1, W] C-contiguous, or None unless `pointers`) as numpy
         arrays.  From a card they come back into the runner's page-locked
         buffers, which the next call overwrites: every batch is consumed
         before the next.  The pointer tensor, by far the largest, is copied
-        only when asked for."""
-        out = banded_nw_forward_torch(reads_arr, lens_arr, refs_arr,
+        only when asked for.  `out`: host arrays of those shapes that take
+        the results in place of the runner's buffers (the device server
+        passes a worker's region)."""
+        res = banded_nw_forward_torch(reads_arr, lens_arr, refs_arr,
                                       self.scoring, self.device)
         self.stats.bump(f"nw_jobs_on_{self.device.type}", len(reads_arr))
         if not pointers:
-            out = out[:3]
+            res = res[:3]
         if self.device.type != "cuda":
-            host = [t.cpu().numpy() for t in out]
+            host = [t.cpu().numpy() for t in res]
+            if out is not None:
+                for dst, src in zip(out, host):
+                    np.copyto(dst, src)
+                host = list(out[:len(host)])
         else:
             host = []
-            for name, dtype, t in zip(
+            for i, (name, dtype, t) in enumerate(zip(
                     ("dev_score", "dev_end_k", "dev_end_state",
                      "dev_pointers"),
-                    (np.float32, np.int32, np.int32, np.uint8), out):
-                view = self.host_buffer(name, tuple(t.shape), dtype,
-                                        crosses=True)
+                    (np.float32, np.int32, np.int32, np.uint8), res)):
+                view = (out[i] if out is not None else
+                        self.host_buffer(name, tuple(t.shape), dtype,
+                                         crosses=True))
                 torch.from_numpy(view).copy_(t, non_blocking=True)
                 host.append(view)
             torch.cuda.current_stream(self.device).synchronize()
         return tuple(host) if pointers else (*host, None)
 
+    def jobs_per_call(self, L: int, W: int) -> int:
+        """Jobs of read length up to `L` and band `W` in one call."""
+        return jobs_per_call(L, W)
+
     def run_jobs(self, reads_arr, lens_arr, refs_arr, pointers: bool = True):
         """The forward pass over any number of jobs, in calls of
-        jobs_per_call(L, W) jobs: yields (lo, hi, results of run() for jobs
-        lo..hi).  Each yield's arrays are overwritten by the next call."""
+        self.jobs_per_call(L, W) jobs: yields (lo, hi, results of run() for
+        jobs lo..hi).  Each yield's arrays are overwritten by the next
+        call."""
         n, L = reads_arr.shape
-        step = jobs_per_call(L, refs_arr.shape[1] - L)
+        step = self.jobs_per_call(L, refs_arr.shape[1] - L)
         for lo in range(0, n, step):
             hi = min(lo + step, n)
             yield lo, hi, self.run(reads_arr[lo:hi], lens_arr[lo:hi],
@@ -208,9 +221,13 @@ class ReadAligner:
     def __init__(self, pkg: GraphPackage, cfg: RunConfig | None = None,
                  band: int | None = None, kmer_k: int = 20,
                  graph_fallback: bool = True, decoy=None, *,
-                 device: str | torch.device, sharded=None):
+                 device: str | torch.device, sharded=None, nw_runner=None):
+        """`nw_runner`: the NW forward to use in place of an NWRunner on
+        `device` (a worker's ServedNWRunner); `device` is then the
+        server's (a device_server.ServedDevice), and this process makes no
+        CUDA call."""
         self.pkg = pkg
-        self.device = resolve(device)
+        self.device = resolve(device) if nw_runner is None else device
         # a parallel.mesh.Mesh: every NW call is split over all its ranks
         self.sharded = sharded
         self._sharded_nw = None
@@ -252,8 +269,12 @@ class ReadAligner:
             # reads, 0.5% ins+del: per-base level accuracy 0.46 at band
             # 32 → 0.90+ at 160+.
             self.band = 256
-        self.stats = Stats()
-        self._nw = NWRunner(self.device, self.scoring, self.stats)
+        if nw_runner is None:
+            self.stats = Stats()
+            self._nw = NWRunner(self.device, self.scoring, self.stats)
+        else:
+            self.stats = nw_runner.stats
+            self._nw = nw_runner
         self.graph_fallback = graph_fallback
         self._realigner = None
         # paralog defense (mapAgainstCompleteGenome equivalent,
@@ -346,8 +367,8 @@ class ReadAligner:
         _align_jobs_arrays)."""
         if not jobs:
             return []
-        MAX_B = jobs_per_call(max(len(j.oriented_seq) for j in jobs),
-                              self.band)
+        MAX_B = self._nw.jobs_per_call(
+            max(len(j.oriented_seq) for j in jobs), self.band)
         if len(jobs) > MAX_B:
             out: list[GraphAlignment | None] = []
             for lo in range(0, len(jobs), MAX_B):
@@ -382,7 +403,8 @@ class ReadAligner:
         'first'); candidates stay numpy end-to-end."""
         if not len(job_read):
             return []
-        MAX_B = jobs_per_call(_longest(all_reads, job_read), self.band)
+        MAX_B = self._nw.jobs_per_call(_longest(all_reads, job_read),
+                                       self.band)
         if len(job_read) > MAX_B:
             out: list[GraphAlignment | None] = []
             for lo in range(0, len(job_read), MAX_B):
@@ -414,7 +436,8 @@ class ReadAligner:
             return None
         from .alignment import project_batch_raw
         n = len(job_read)
-        MAX_B = jobs_per_call(_longest(all_reads, job_read), self.band)
+        MAX_B = self._nw.jobs_per_call(_longest(all_reads, job_read),
+                                       self.band)
         chunks = []
         col_base = 0
         for lo in range(0, n, MAX_B):

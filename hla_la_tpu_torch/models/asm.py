@@ -27,8 +27,8 @@ import os
 from dataclasses import asdict, dataclass, field
 
 import numpy as np
-import torch
 
+from .._lazy import torch
 from ..graph.package import GraphPackage
 from ..mapping.kmer_index import KmerIndex
 from ..mapping.seeder import Seeder

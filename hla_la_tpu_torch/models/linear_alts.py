@@ -21,8 +21,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
+from .._lazy import torch
 from ..io.fastq import FastqRead
 from ..mapping.kmer_index import KmerIndex
 from ..mapping.seeder import Seeder

@@ -7,18 +7,25 @@ commented out in the snapshot — processBAM.cpp:2076; typing uses
 backtrace, projection, pair selection) is spread over worker processes, each
 owning a full ReadAligner built from the compiled graph package.
 
-How the workers share one card: every worker owns a CUDA context on it and
-runs the NW jobs of its chunks through its own ``NWRunner`` (K1 or K2), as
-the one-process run does; no NW job is taken by a host forward.  Workers are
-spawned, never forked (a forked child of a process that has touched CUDA is
-broken).  The parent builds the kernel library before it starts the pool, so
-no worker compiles.  Each worker's share of the aligner's pointer budget is
-``NW_POINTER_BUDGET / n_workers``: the page-locked buffers of all workers
-together stay within what one process would pin, and since every NW job is
+How the workers share one card: they do not touch it.  As the reference's
+workers run on the host (``JAX_PLATFORMS=cpu`` and an aligner without JAX),
+the port's are host-only: no CUDA call, no context, no page-locked memory.
+Each worker's aligner sends its NW calls (K1 or K2) to the device server, a
+thread of the parent that runs them on the parent's device through the same
+``NWRunner`` the one-process run uses (``models/device_server.py``); the
+typing workers taken from this pool send their cluster x read products and
+pair reductions (K3) there too.  So no NW job is taken by a host forward,
+and the card holds one context.  Workers are spawned, never forked.  Each
+worker's region, through which its arrays reach the server, takes NW calls
+of at most ``NW_POINTER_BUDGET / n_workers`` bytes: the regions of all
+workers together hold what one process would pin, and since every NW job is
 independent of how jobs are cut into calls, the alignments do not change.
-A worker's counters (``Stats``, and the launches of the kernel wrappers in
-that process) come back with every chunk and are summed in the parent; an
-exception in a worker reaches the caller through the pool.
+A worker's counters (``Stats``, with the launches the server made for it as
+``served_launches_<kernel>``) come back with every chunk and are summed in
+the parent, with a report that the worker has not initialised CUDA (the
+parent raises if one has); an exception in a worker or in the server
+reaches the caller through the pool, and a worker that dies ends the run
+(``DeviceServer.watch``).
 """
 
 from __future__ import annotations
@@ -48,12 +55,9 @@ def stats_counters(st) -> dict:
 
 
 def _counters() -> dict:
-    """The worker aligner's Stats and this process's kernel launches as one
+    """The worker aligner's Stats (the served launches among them) as one
     flat dict of running totals."""
-    d = stats_counters(_WORKER_ALIGNER.stats)
-    d.update({f"worker_launches_{k}": n
-              for k, n in kernel_launches().items()})
-    return d
+    return stats_counters(_WORKER_ALIGNER.stats)
 
 
 def _counted(before: dict) -> dict:
@@ -73,39 +77,40 @@ def add_counters(stats, delta: dict) -> None:
 
 def _init_worker(graph_dir: str, band, kmer_k: int, long_reads: str,
                  decoy_fasta: str = "", map_complete: bool = False,
-                 device: str = "cuda", n_workers: int = 1,
+                 server: tuple = (), region_share: int | None = None,
                  t_pool: float | None = None):
+    """A host-only alignment worker: its aligner's NW forward is the
+    device server's (`server`: DeviceServer.initargs)."""
     global _WORKER_ALIGNER
     t_enter = time.time()
-    import torch
-    torch.set_num_threads(1)
     from ..graph.package import GraphPackage
     from ..utils.config import RunConfig
-    from . import aligner
+    from . import aligner, device_server
     cfg = RunConfig(long_reads=long_reads, decoy_fasta=decoy_fasta,
                     map_against_complete_genome=map_complete)
+    served = device_server.connect(*server, region_share=region_share)
+    t_connected = time.time()
     pkg = GraphPackage(graph_dir)
     from .pipeline import build_decoy
     decoy = build_decoy(pkg, cfg)   # cache-hit after the parent built it
-    # this worker's share of the pointer budget (and so of the page-locked
-    # memory): all workers together pin what one process would
-    aligner.NW_POINTER_BUDGET = max(1, aligner.NW_POINTER_BUDGET
-                                    // max(1, n_workers))
-    _WORKER_ALIGNER = aligner.ReadAligner(pkg, cfg, band=band, kmer_k=kmer_k,
-                                          decoy=decoy, device=device)
-    t_aligner = time.time()
-    if _WORKER_ALIGNER.device.type == "cuda":
-        # the context is made here, not inside the first chunk
-        torch.zeros(1, device=_WORKER_ALIGNER.device)
-        torch.cuda.synchronize(_WORKER_ALIGNER.device)
+    _WORKER_ALIGNER = aligner.ReadAligner(
+        pkg, cfg, band=band, kmer_k=kmer_k, decoy=decoy,
+        device=served.device, nw_runner=device_server.ServedNWRunner(served))
     from ..utils.timing import log_progress
     t_pool = t_pool or t_enter
     log_progress(
-        f"alignment worker {os.getpid()} ready on {device} "
-        f"{time.time() - t_pool:.1f} s after the pool was made: process "
-        f"start and imports {t_enter - t_pool:.1f} s, package and aligner "
-        f"{t_aligner - t_enter:.1f} s, device context "
-        f"{time.time() - t_aligner:.1f} s")
+        f"alignment worker {os.getpid()} ready, host-only, served on "
+        f"{served.device} {time.time() - t_pool:.1f} s after the pool "
+        f"was made: process start and imports {t_enter - t_pool:.1f} s, "
+        f"connection to the device server {t_connected - t_enter:.1f} s, "
+        f"package and aligner {time.time() - t_connected:.1f} s; torch "
+        f"imported: {device_server.torch_imported()}, CUDA initialised: "
+        f"{device_server.cuda_initialized()}")
+
+
+def _report() -> dict:
+    from .device_server import client
+    return client().report()
 
 
 def _align_chunk(args):
@@ -114,14 +119,14 @@ def _align_chunk(args):
     pack = pack_aligned_pairs(
         _WORKER_ALIGNER.align_pairs(unpack_read_pairs(packed),
                                     insert_mean, insert_sd))
-    return idx, pack, _counted(before)
+    return idx, pack, _counted(before), _report()
 
 
 def _align_unpaired_chunk(args):
     idx, packed = args
     before = _counters()
     out = _WORKER_ALIGNER.align_unpaired(unpack_reads(packed))
-    return idx, out, _counted(before)
+    return idx, out, _counted(before), _report()
 
 
 def pack_reads(reads):
@@ -444,7 +449,8 @@ def spawn_safe() -> bool:
 
 
 class ParallelAligner:
-    """Drop-in align_pairs/align_unpaired over a process pool."""
+    """Drop-in align_pairs/align_unpaired over a process pool of host-only
+    workers, whose device calls the parent's DeviceServer runs."""
 
     def __init__(self, graph_dir: str, n_workers: int,
                  band: int | None = None,
@@ -457,23 +463,41 @@ class ParallelAligner:
                 "(multiprocessing spawn); use the serial ReadAligner")
         from ..device import resolve
         from ..utils.timing import Stats
+        from . import aligner
+        from .device_server import DeviceServer
         self.device = resolve(device)
         if self.device.type == "cuda":
-            # one build, here, before any worker asks for the library
             from .. import _build
             _build.library()
         ctx = mp.get_context("spawn")
         self.n_workers = max(1, n_workers)
         self.stats = Stats()     # the workers' counters, summed
+        # each worker's last report (DeviceClient.report), by pid
+        self.workers: dict[int, dict] = {}
+        self.server = DeviceServer(self.device)
+        # each worker's share of the bytes of NW calls in flight
+        self.region_share = max(1, aligner.NW_POINTER_BUDGET
+                                // self.n_workers)
         os.environ["HLA_LA_IN_WORKER"] = "1"   # inherited by children
+        self.pool = None
         try:
             self.pool = ctx.Pool(self.n_workers, initializer=_init_worker,
                                  initargs=(graph_dir, band, kmer_k,
                                            long_reads, decoy_fasta,
-                                           map_complete, str(self.device),
-                                           self.n_workers, time.time()))
+                                           map_complete, self.server.initargs,
+                                           self.region_share, time.time()))
         finally:
             del os.environ["HLA_LA_IN_WORKER"]
+            if self.pool is None:
+                self.server.stop()
+
+    def note_worker(self, report: dict) -> None:
+        """Keep a worker's report; a worker that initialised CUDA ends the
+        run."""
+        self.workers[report["pid"]] = report
+        if report["cuda_initialized"]:
+            raise RuntimeError(f"worker {report['pid']} initialised CUDA: "
+                               "the workers must stay on the host")
 
     def align_pairs(self, pairs, insert_mean, insert_sd, truth=None):
         if not pairs:
@@ -486,12 +510,14 @@ class ParallelAligner:
         # still aligning the rest (pool.map would leave the parent idle and
         # then unpack everything serially); chunk ids restore the order
         slots = [None] * len(chunks)
-        for idx, res, counted in self.pool.imap_unordered(
-                _align_chunk,
-                [(i, pack_read_pairs(c), insert_mean, insert_sd)
-                 for i, c in enumerate(chunks)]):
+        for idx, res, counted, report in self.server.watch(
+                self.pool.imap_unordered(
+                    _align_chunk,
+                    [(i, pack_read_pairs(c), insert_mean, insert_sd)
+                     for i, c in enumerate(chunks)])):
             slots[idx] = res
             add_counters(self.stats, counted)
+            self.note_worker(report)
         # the packed chunk arrays stay live end-to-end (PackedAlignedPairs):
         # GraphAlignment objects materialise lazily, only where consumed
         out = PackedAlignedPairs.from_chunks(slots)
@@ -515,11 +541,13 @@ class ParallelAligner:
         chunk = max(256, -(-len(reads) // (self.n_workers * 2)))
         chunks = [reads[i:i + chunk] for i in range(0, len(reads), chunk)]
         slots = [None] * len(chunks)
-        for idx, res, counted in self.pool.imap_unordered(
-                _align_unpaired_chunk,
-                [(i, pack_reads(c)) for i, c in enumerate(chunks)]):
+        for idx, res, counted, report in self.server.watch(
+                self.pool.imap_unordered(
+                    _align_unpaired_chunk,
+                    [(i, pack_reads(c)) for i, c in enumerate(chunks)])):
             slots[idx] = res
             add_counters(self.stats, counted)
+            self.note_worker(report)
         out = [al for res in slots for al in res]
         if truth is not None:
             for r, al in zip(reads, out):
@@ -530,5 +558,23 @@ class ParallelAligner:
         return out
 
     def close(self):
+        """Stop the server, then the pool; log what the server ran and
+        each worker's last report."""
+        from ..utils.timing import log_progress
+        self.server.stop()
         self.pool.close()
         self.pool.join()
+        sv = self.server.served
+        log_progress(
+            f"device server on {self.device}: {sv['requests']} requests from "
+            f"{len(self.server.region_peak)} workers, {sv['nw_jobs']} NW "
+            f"jobs, launches " + ", ".join(
+                f"{k} {n}" for k, n in sv["launches"].items()))
+        for pid, rep in sorted(self.workers.items()):
+            ms = {k: round(v, 3) for k, v in rep["device_ms"].items()}
+            log_progress(
+                f"alignment worker {pid}: CUDA initialised "
+                f"{rep['cuda_initialized']} after its last task (torch "
+                f"imported: {rep['torch_imported']}); {rep['requests']} "
+                f"device requests, device ms by kernel {ms}; region "
+                f"{rep['region_bytes'] / 2**20:.1f} MiB")

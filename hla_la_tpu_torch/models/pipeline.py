@@ -25,8 +25,8 @@ import tempfile
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
+from .._lazy import torch
 from ..device import resolve
 from ..graph.package import GraphPackage
 from ..io.fastq import FastqRead, read_fastq
@@ -227,8 +227,9 @@ def _run_hla_typing(pkg, pairs, unpaired, output_dir, cfg, dev, truth,
     log_progress(aligner.stats.report())
 
     try:
-        # the warm alignment workers (package in memory, a context on the
-        # device) also serve per-locus typing — no reload cost
+        # the warm alignment workers (package in memory) also serve
+        # per-locus typing, through the same device server — no reload
+        # cost
         with Timer("type") as t_type:
             results = _type_and_write(pkg, cfg, dev, aligned_pairs,
                                       kept_pairs, aligned_unpaired,
@@ -265,8 +266,8 @@ def _type_and_write(pkg, cfg, device, aligned_pairs, kept_pairs,
     from .parallel_host import kernel_launches
     log_progress("kernel launches in this process: " + ", ".join(
         f"{k} {n}" for k, n in kernel_launches().items())
-        + "; in typing workers: " + ", ".join(
-            f"{k} {n}" for k, n in typer.worker_launches.items()))
+        + "; of them served for typing workers: " + ", ".join(
+            f"{k} {n}" for k, n in typer.served_launches.items()))
     return results
 
 

@@ -36,9 +36,9 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from .. import native
+from .._lazy import torch
 from ..device import resolve
 from ..graph.package import GraphPackage
 from ..io.fastq import FastqRead
@@ -304,17 +304,32 @@ class LocusResult:
 class HLATyper:
     def __init__(self, pkg: GraphPackage, cfg: TyperConfig | None = None,
                  g_nomenclature_path: str | None = None, *,
-                 device: str | torch.device, sharded=None):
+                 device: str | torch.device, sharded=None,
+                 served: bool = False):
+        """`served`: a host-only typer in a worker process, whose two
+        device calls (the cluster x read products and the pair reduction)
+        run on the device server it is connected to; `device` is then the
+        server's (a device_server.ServedDevice), and this process makes no
+        CUDA call."""
         self.pkg = pkg
         self.cfg = cfg or TyperConfig()
-        self.device = resolve(device)
+        self.device = device if served else resolve(device)
         self.sharded = sharded      # a parallel.mesh.Mesh or None
-        # K3 launches made by typing workers for this typer, by kernel, and
-        # per chunk of loci a worker typed: its pid, its seconds from the
-        # fan-out's start until it was ready to type (process, package,
-        # typer, device context) and until it was done, and the device
-        # milliseconds of each K3 launch it made
-        self.worker_launches = {"K3": 0}
+        if served:
+            from .device_server import (served_cluster_read_ll,
+                                        served_pair_ll_reduction)
+            self._cluster_read_ll = served_cluster_read_ll
+            self._pair_ll_reduction = served_pair_ll_reduction
+        else:
+            self._cluster_read_ll = cluster_read_ll
+            self._pair_ll_reduction = pair_ll_reduction
+        # K3 launches the device server made for this typer's typing
+        # workers, by kernel, and per chunk of loci a worker typed: its
+        # pid, its seconds from the fan-out's start until it was ready to
+        # type (process, package, typer) and until it was done, the device
+        # milliseconds of each K3 launch made for it (timed in the server)
+        # and whether it imported torch and initialised CUDA
+        self.served_launches = {"K3": 0}
         self.worker_runs: list[dict] = []
         self.segment_files = pkg.segment_files()
         self.graph_genes = self._discover_genes()
@@ -572,13 +587,17 @@ class HLATyper:
         """Per-locus typing fan-out over worker processes (the reference
         types loci serially; loci are independent given the alignments).
         `worker_pool`: a live ParallelAligner whose warm workers (package
-        already in memory) are reused; without one, fresh workers are
-        spawned — worth it only when serial typing would take minutes.
+        already in memory) are reused, with its device server; without
+        one, fresh workers are spawned and served by a server of their own
+        — worth it only when serial typing would take minutes.  The
+        workers are host-only: their cluster x read products and pair
+        reductions run on this process's device, in the server's thread.
         Returns {locus: (LocusResult|None, hist_text)}, or None when the
         fan-out is not worth it or cannot start (too few reads or loci, no
         file-backed __main__): the caller then types serially.  A failure
-        INSIDE a worker (a CUDA error, a failed build or launch) is not
-        such a case: it propagates and ends the run."""
+        INSIDE a worker or in the server on its behalf (a CUDA error, a
+        failed build or launch) is not such a case: it propagates and ends
+        the run."""
         from .parallel_host import pack_aligned_pairs, spawn_safe
         # per-worker fixed costs (HLATyper init, kmer-index IPC; plus a
         # package reload for fresh workers) only amortise at WGS scale
@@ -633,32 +652,46 @@ class HLATyper:
             raw2 = _pack_reads(r2 for _, r2 in sub_raw_pairs)
             rawu = _pack_reads(sub_rawu)
             unal = _pack_optional_chains(sub_unal)
-            args.append((self.pkg.dir, str(self.device), self.cfg, self.g_path,
+            args.append((self.pkg.dir, self.cfg, self.g_path,
                          chunk, packed, raw1, raw2, rawu, unal,
                          insert_mean, insert_sd, output_dir, cfg,
                          long_reads, kc_arg, hist_w))
-        if worker_pool is None and self.device.type == "cuda":
-            # one build, here, before any worker asks for the library
-            from .. import _build
-            _build.library()
+        server = None
+        if worker_pool is None:
+            if self.device.type == "cuda":
+                # one build, here, before the server's first launch
+                from .. import _build
+                _build.library()
+            from .device_server import DeviceServer
+            server = DeviceServer(self.device)
         t_start = time.time()
         try:
             if worker_pool is not None:
-                chunk_results = worker_pool.pool.map(_typing_worker, args)
+                chunk_results = list(worker_pool.server.watch(
+                    worker_pool.pool.imap(_typing_worker, args)))
             else:
                 ctx = mp.get_context("spawn")
-                with ctx.Pool(n, initializer=_typing_worker_init) as pool:
-                    chunk_results = pool.map(_typing_worker, args)
+                with ctx.Pool(n, initializer=_typing_worker_init,
+                              initargs=server.initargs) as pool:
+                    chunk_results = list(server.watch(
+                        pool.imap(_typing_worker, args)))
         finally:
+            if server is not None:
+                server.stop()
             if kc_path is not None and os.path.exists(kc_path):
                 os.unlink(kc_path)
         out = {}
         for res, launches, run in chunk_results:
-            self.worker_launches["K3"] += launches
+            if run["cuda_initialized"]:
+                raise RuntimeError(f"typing worker {run['pid']} initialised "
+                                   "CUDA: the workers must stay on the host")
+            self.served_launches["K3"] += launches
             self.worker_runs.append({
                 "pid": run["pid"], "loci": [locus for locus, _, _ in res],
                 "ready_s": run["ready_at"] - t_start,
-                "done_s": run["done_at"] - t_start, "k3_ms": run["k3_ms"]})
+                "done_s": run["done_at"] - t_start, "k3_ms": run["k3_ms"],
+                "torch_imported": run["torch_imported"],
+                "cuda_initialized": run["cuda_initialized"]})
             for locus, r, hist_text in res:
                 out[locus] = (r, hist_text)
         if set(out) != set(self.loci):
@@ -1318,7 +1351,7 @@ class HLATyper:
                 out=(self._scratch("contrib", tshape),
                      self._scratch("mismatch", tshape)))
             used_count += used_c
-            LLmat[:, lo:hi2], MMmat[:, lo:hi2] = cluster_read_ll(
+            LLmat[:, lo:hi2], MMmat[:, lo:hi2] = self._cluster_read_ll(
                 onehot, contrib, mismatch, device=self.device)
         log_progress(f"  {locus}: {C} clusters x {R} reads")
         dump_dir = os.environ.get("HLA_LLMAT_DUMP")
@@ -1330,8 +1363,8 @@ class HLATyper:
                         soa.pos[first])
 
         # ---- pair reduction ----------------------------------------------
-        pair_LL = pair_ll_reduction(LLmat, device=self.device,
-                                    sharded=self.sharded)
+        pair_LL = self._pair_ll_reduction(LLmat, device=self.device,
+                                          sharded=self.sharded)
         iu = np.triu_indices(C)
         pair_vals = pair_LL[iu]                    # ordered (c1 <= c2)
         max_ll = float(pair_vals.max()) if len(pair_vals) else 0.0
@@ -2170,9 +2203,10 @@ def _unpack_optional_chains(t) -> list:
     return out
 
 
-def _typing_worker_init():
+def _typing_worker_init(address: str, authkey: bytes):
     os.environ["HLA_LA_IN_WORKER"] = "1"
-    torch.set_num_threads(1)
+    from .device_server import connect
+    connect(address, authkey)
 
 
 _KC_CACHE: dict[str, "KmerCountIndex"] = {}
@@ -2189,7 +2223,7 @@ def _load_spilled_kmer_counts(path: str) -> "KmerCountIndex":
 
 
 def _typing_worker(args):
-    (pkg_dir, device, base_cfg, g_path, loci, packed, raw1, raw2, rawu,
+    (pkg_dir, base_cfg, g_path, loci, packed, raw1, raw2, rawu,
      packed_unal, insert_mean, insert_sd, output_dir, cfg, long_reads,
      kmer_counts, hist_w) = args
     import io
@@ -2203,17 +2237,19 @@ def _typing_worker(args):
         # spilled index: load once per worker process (see the spill in
         # _type_loci_parallel)
         kmer_counts = _load_spilled_kmer_counts(kmer_counts)
-    from ..ops.cuda_pair import pair_ll_diff_cuda
     from . import parallel_host as ph
-    launches_before = pair_ll_diff_cuda.launches
+    from .device_server import client, cuda_initialized, torch_imported
+    served = client()
+    launches_before = served.launches["K3"]
+    ms_before = len(served.ms["K3"])
     pkg = None
     if ph._WORKER_ALIGNER is not None \
             and ph._WORKER_ALIGNER.pkg.dir == pkg_dir:
         pkg = ph._WORKER_ALIGNER.pkg
     if pkg is None:
         pkg = GraphPackage(pkg_dir)
-    typer = HLATyper(pkg, base_cfg,
-                     g_nomenclature_path=g_path, device=device)
+    typer = HLATyper(pkg, base_cfg, g_nomenclature_path=g_path,
+                     device=served.device, served=True)
     # wrap, don't unpack: the worker's typing loop reads the SoA arrays
     # directly and materialises objects only for locus-overlapping chains
     from .parallel_host import PackedAlignedPairs
@@ -2227,10 +2263,7 @@ def _typing_worker(args):
         if aligned_pairs else None)
     typer._hist_override = hist_w   # full-set fractions for the histogram
     typer._async_out = _AsyncOutput()
-    torch.zeros(1, device=typer.device)     # the device context, if new
     ready_at = time.time()
-    if typer.device.type == "cuda":
-        pair_ll_diff_cuda.events = []       # each K3 launch timed
     out = []
     try:
         for locus in loci:
@@ -2244,11 +2277,8 @@ def _typing_worker(args):
     finally:
         aout, typer._async_out = typer._async_out, None
         aout.flush(raising=sys.exc_info()[0] is None)
-        events, pair_ll_diff_cuda.events = pair_ll_diff_cuda.events, None
-    k3_ms = []
-    if events:
-        torch.cuda.synchronize(typer.device)
-        k3_ms = [start.elapsed_time(end) for start, end in events]
-    return out, pair_ll_diff_cuda.launches - launches_before, {
+    return out, served.launches["K3"] - launches_before, {
         "pid": os.getpid(), "ready_at": ready_at, "done_at": time.time(),
-        "k3_ms": k3_ms}
+        "k3_ms": served.ms["K3"][ms_before:],
+        "torch_imported": torch_imported(),
+        "cuda_initialized": cuda_initialized()}

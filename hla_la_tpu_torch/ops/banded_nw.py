@@ -30,8 +30,8 @@ from __future__ import annotations
 from dataclasses import asdict, dataclass
 
 import numpy as np
-import torch
 
+from .._lazy import torch
 from ..device import on_card, resolve, to_device
 from .cuda_nw import MAX_W as K1_MAX_W
 from .cuda_nw import banded_nw_cuda

@@ -15,9 +15,8 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import torch
-
 from .. import _build
+from .._lazy import torch
 
 MAX_W = 32          # K1: the job's lanes fit a quarter of a warp
 MAX_W_LONG = 1024   # K2
@@ -106,10 +105,11 @@ def check_nw_args(name: str, reads: torch.Tensor, read_lens: torch.Tensor,
 
 
 def launch_nw(entry: str, reads: torch.Tensor, read_lens: torch.Tensor,
-              refs: torch.Tensor, sc: dict, B: int, L: int, W: int
-              ) -> tuple[torch.Tensor, ...]:
+              refs: torch.Tensor, sc: dict, B: int, L: int, W: int,
+              events: list | None = None) -> tuple[torch.Tensor, ...]:
     """Allocate the outputs and launch the C entry point `entry` with the
-    plan of this shape."""
+    plan of this shape; with an `events` list, append (start, end) CUDA
+    events recorded around the launch."""
     reads = reads.contiguous()
     refs = refs.contiguous()
     lens = read_lens.to(torch.int32).contiguous()
@@ -120,14 +120,20 @@ def launch_nw(entry: str, reads: torch.Tensor, read_lens: torch.Tensor,
     pointers = torch.empty((B, L + 1, W), dtype=torch.uint8, device=dev)
     plan = nw_launch_plan(B, L, W)
     lib = _build.library()
+    stream = torch.cuda.current_stream(dev)
+    if events is not None:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record(stream)
     rc = getattr(lib.lib, entry)(
         reads.data_ptr(), lens.data_ptr(), refs.data_ptr(), B, L, W,
         sc["match"], sc["mismatch"], sc["gap_open"], sc["gap_extend"],
         score.data_ptr(), end_k.data_ptr(), end_state.data_ptr(),
         pointers.data_ptr(), plan.cpt, plan.lanes, plan.job_warps,
-        plan.block_warps, plan.chunk, plan.job_words,
-        torch.cuda.current_stream(dev).cuda_stream)
+        plan.block_warps, plan.chunk, plan.job_words, stream.cuda_stream)
     lib.check(entry, rc)
+    if events is not None:
+        end.record(stream)
+        events.append((start, end))
     return score, end_k, end_state, pointers
 
 
@@ -140,7 +146,7 @@ def banded_nw_cuda(reads: torch.Tensor, read_lens: torch.Tensor,
     B, L, W = check_nw_args("banded_nw_cuda", reads, read_lens, refs, 2,
                             MAX_W)
     out = launch_nw("hla_banded_nw_forward", reads, read_lens, refs, sc,
-                    B, L, W)
+                    B, L, W, banded_nw_cuda.events)
     banded_nw_cuda.launches += 1
     banded_nw_cuda.largest = max(banded_nw_cuda.largest,
                                  (B * L * W, B, L, W))
@@ -151,3 +157,6 @@ banded_nw_cuda.launches = 0
 # the launch with the most cells since the count was last zeroed:
 # (cells, B, L, W)
 banded_nw_cuda.largest = (0, 0, 0, 0)
+# a list, while a caller wants each launch timed: (start, end) CUDA events
+# recorded around every launch are appended to it
+banded_nw_cuda.events = None

@@ -11,8 +11,7 @@ PyTorch version, shared with K1, is ``ops/banded_nw.py::banded_nw_plain``.
 
 from __future__ import annotations
 
-import torch
-
+from .._lazy import torch
 from .cuda_nw import MAX_W as K1_MAX_W
 from .cuda_nw import MAX_W_LONG as MAX_W
 from .cuda_nw import check_nw_args, launch_nw
@@ -31,7 +30,7 @@ def banded_nw_long_cuda(reads: torch.Tensor, read_lens: torch.Tensor,
     if L < 1:
         raise ValueError(f"read length L={L} < 1")
     out = launch_nw("hla_banded_nw_long_forward", reads, read_lens, refs,
-                    sc, B, L, W)
+                    sc, B, L, W, banded_nw_long_cuda.events)
     banded_nw_long_cuda.launches += 1
     banded_nw_long_cuda.largest = max(banded_nw_long_cuda.largest,
                                       (B * L * W, B, L, W))
@@ -42,3 +41,5 @@ banded_nw_long_cuda.launches = 0
 # the launch with the most cells since the count was last zeroed:
 # (cells, B, L, W)
 banded_nw_long_cuda.largest = (0, 0, 0, 0)
+# a list, while a caller wants each launch timed (see banded_nw_cuda)
+banded_nw_long_cuda.events = None

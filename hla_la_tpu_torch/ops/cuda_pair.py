@@ -9,9 +9,8 @@ PyTorch version lives in ``ops/pair_ll.py``.
 
 from __future__ import annotations
 
-import torch
-
 from .. import _build
+from .._lazy import torch
 
 
 def pair_ll_diff_cuda(L: torch.Tensor,

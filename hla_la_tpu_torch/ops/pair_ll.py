@@ -24,8 +24,8 @@ Device half:
 from __future__ import annotations
 
 import numpy as np
-import torch
 
+from .._lazy import torch
 from ..device import on_card, resolve, to_device
 from .cuda_pair import pair_ll_diff_cuda
 
@@ -191,10 +191,11 @@ PLAIN_CELLS = 1.3e8
 
 
 def cluster_read_ll(onehot: np.ndarray, contrib: np.ndarray,
-                    mismatch: np.ndarray, device: str | torch.device
-                    ) -> tuple[np.ndarray, np.ndarray]:
+                    mismatch: np.ndarray, device: str | torch.device,
+                    out=None) -> tuple[np.ndarray, np.ndarray]:
     """onehot [C, J, 6], contrib / mismatch [R, J, 6] -> (LL, MM) [C, R]
-    float32 numpy, computed on `device`."""
+    float32 numpy, computed on `device`; into the two arrays of `out` when
+    given (the device server passes a worker's region)."""
     dev = resolve(device)
     C, J, _ = onehot.shape
     R = contrib.shape[0]
@@ -203,7 +204,11 @@ def cluster_read_ll(onehot: np.ndarray, contrib: np.ndarray,
     Bm = to_device(mismatch.reshape(R, J * 6), dev)
     ll = torch.matmul(A, Bc.T)
     mm = torch.matmul(A, Bm.T)
-    return ll.cpu().numpy(), mm.cpu().numpy()
+    if out is None:
+        return ll.cpu().numpy(), mm.cpu().numpy()
+    for dst, t in zip(out, (ll, mm)):
+        torch.from_numpy(dst).copy_(t)
+    return out[0], out[1]
 
 
 def plain_chunk(C: int, R: int, chunk: int = 256) -> int:

@@ -204,14 +204,18 @@ def stress_imgt(world, device, n_workers: int, out_root: str) -> dict:
     runs = typer.worker_runs
     pids = {run["pid"] for run in runs}
     dev = str(device).split(":")[0]
-    assert not runs or k3_fan_parent == 0, \
-        f"fan-out: K3 launched {k3_fan_parent} times here"
+    # the workers are host-only: every K3 launch of the fan-out is this
+    # process's device server's, made for them
+    assert k3_fan_parent == typer.served_launches["K3"], \
+        (f"fan-out: K3 launched {k3_fan_parent} times here, "
+         f"{typer.served_launches['K3']} of them for the workers")
+    assert not any(run["cuda_initialized"] for run in runs), runs
     k3_ms = [ms for run in runs for ms in run["k3_ms"]]
     log(f"fan-out: {t_fan:.3f}s vs serial {t_type:.3f}s; {n_files} output "
         f"files byte-identical; "
         + (f"ran in {len(pids)} workers, ready after "
            f"{sorted(round(r['ready_s'], 2) for r in runs)} s"
-           + (f", K3 per launch there {[round(m, 3) for m in k3_ms]} ms"
+           + (f", K3 per launch for them {[round(m, 3) for m in k3_ms]} ms"
               if k3_ms else "")
            if runs else f"did not run: {len(aligned)} aligned pairs and "
            f"{len(loci)} loci against the gate "
@@ -233,8 +237,18 @@ def stress_imgt(world, device, n_workers: int, out_root: str) -> dict:
                                 "K3_serial": k3_serial,
                                 "K3_fanout": k3_fan_parent},
             "launches_workers": {
-                "K1": stats.extras.get("worker_launches_K1", 0),
-                "K3": typer.worker_launches["K3"]},
+                "K1": stats.extras.get("served_launches_K1", 0),
+                "K3": typer.served_launches["K3"]},
+            # the host-only workers: each one's CUDA state after its last
+            # align and type task, and what the align pool's device server
+            # ran for them
+            "workers_cuda_initialized": (
+                [r["cuda_initialized"] for r in engine.workers.values()]
+                + [r["cuda_initialized"] for r in runs]),
+            "workers_torch_imported": (
+                [r["torch_imported"] for r in engine.workers.values()]
+                + [r["torch_imported"] for r in runs]),
+            "served": engine.server.served,
             "n_chain_extensions": jobs, f"nw_jobs_on_{dev}": on_dev,
             "loci": {r.locus: [r.n_clusters, r.n_reads_used] for r in res},
             "calls": {r.locus: [r.allele1_id, r.allele2_id] for r in res}}
@@ -452,9 +466,14 @@ def stress_long(world, device, n_workers: int, out_root: str) -> dict:
             "align_s": t_align, "type_s": t_type,
             "peak_rss_gb": bc.rss_gb(),
             "launches_workers": {
-                "K2": stats.extras.get("worker_launches_K2", 0)},
+                "K2": stats.extras.get("served_launches_K2", 0)},
             "launches_parent": {"K2": kernel_launches()["K2"],
                                 "K3": kernel_launches()["K3"]},
+            "workers_cuda_initialized": [
+                r["cuda_initialized"] for r in engine.workers.values()],
+            "workers_torch_imported": [
+                r["torch_imported"] for r in engine.workers.values()],
+            "served": engine.server.served,
             "n_chain_extensions": jobs, f"nw_jobs_on_{dev}": on_dev,
             "loci": {r.locus: [r.n_clusters, r.n_reads_used] for r in res},
             "calls": {r.locus: [r.allele1_id, r.allele2_id] for r in res}}

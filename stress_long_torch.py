@@ -21,8 +21,9 @@ Checks, as stress_long.py's: splitting engaged on at least 4 reads over
 50 kb, the planted alleles called at A and B, the per-base truth-level
 accuracy over 0.9; also every NW job on the device.  Prints the card's name
 and power limit first, then after the checks ``STRESS_LONG OK`` and one
-JSON line: wall, peak RSS, chunks, Mb, K2 launches (in the workers and in
-this process) and the longest NW job's L, and K3 launches.  The kernels are
+JSON line: wall, peak RSS, chunks, Mb, K2 launches (made for the host-only
+workers by this process's device server, and all of this process's) and
+the longest NW job's L, and K3 launches.  The kernels are
 built first, outside every timed window.
 """
 
@@ -111,13 +112,20 @@ def stress_long(reads, device, out_dir: str) -> dict:
     assert jobs > 0 and on_dev == jobs, \
         f"{on_dev} of {jobs} NW jobs ran on {dev}"
     workers = "aligning with 4 worker processes" in text
-    k2_workers = bc.counter(text, "worker_launches_K2")
-    assert dev != "cuda" or here["K2"] + k2_workers > 0, "K2 never launched"
+    k2_workers = bc.counter(text, "served_launches_K2")
+    assert dev != "cuda" or here["K2"] > 0, "K2 never launched"
     return {"wall_s": wall, "peak_rss_gb": bc.rss_gb(), "reads": len(fq),
             "reads_over_split": n_xl, "chunks": len(split),
             "mb": float(lens.sum() / 1e6), "truth_accuracy": acc,
             "align_workers": 4 if workers else 0,
             "launches_workers": {"K2": k2_workers},
+            # the host-only workers (ready and after their last task) and
+            # what the device server ran for them, from the run's log
+            "workers_cuda_initialized": [
+                c == "True" for c in bc.worker_lines(text)["workers_cuda"]],
+            "workers_torch_imported": [
+                c == "True" for c in bc.worker_lines(text)["workers_torch"]],
+            "served": bc.worker_lines(text)["server"],
             "launches_parent": {"K2": here["K2"], "K3": here["K3"]},
             # an unpaired read's NW jobs each span the whole read
             # (ReadAligner._make_jobs), so the longest job is the longest

@@ -17,8 +17,10 @@ Checks, as stress_wgs.py's: the calls exact at every locus; every file of
 the fan-out output byte-identical to the serial output; every NW job on the
 device.  Prints the card's name and power limit first, then after the
 checks ``STRESS_WGS OK`` and one JSON line: align s, reads/s, serial and
-fan-out type s, K1 and K3 launches in this process and in the workers, and
-C x R per locus.  The kernels are built first, outside every timed window.
+fan-out type s, K1 and K3 launches in this process and those of them made
+for the workers (the workers are host-only: this process's device server
+runs their device calls), and C x R per locus.  The kernels are built
+first, outside every timed window.
 """
 
 from __future__ import annotations
@@ -122,15 +124,17 @@ def stress_wgs(world, device, n_workers: int, out_root: str) -> dict:
                               os.path.join(out_f, f), shallow=False)]
     assert not bad, f"fan-out output differs from serial: {bad}"
     log(f"fan-out byte-identical to serial across {len(files)} files")
-    # 3. the fan-out's gate was passed, its K3 ran in the workers, and
+    # 3. the fan-out's gate was passed, its K3 ran for the workers, and
     # every NW job ran on the device
     engaged = (len(aligned) >= cfg.min_reads_for_typing_workers
                and len(typer.loci) >= cfg.min_loci_for_typing_workers)
-    k3_workers = typer.worker_launches["K3"]
+    k3_workers = typer.served_launches["K3"]
     dev = str(device).split(":")[0]
     assert engaged, f"{len(aligned)} aligned pairs: under the fan-out's gate"
-    assert k3_fan_parent == 0 and (dev != "cuda" or k3_workers > 0), \
-        f"fan-out: K3 in the workers {k3_workers}, here {k3_fan_parent}"
+    # the workers are host-only: this process's device server made every
+    # K3 launch of the fan-out, for them
+    assert k3_fan_parent == k3_workers and (dev != "cuda" or k3_workers > 0), \
+        f"fan-out: K3 for the workers {k3_workers}, here {k3_fan_parent}"
     jobs = stats.n_chain_extensions
     on_dev = stats.extras.get(f"nw_jobs_on_{dev}", 0)
     assert jobs > 0 and on_dev == jobs, \
@@ -145,8 +149,17 @@ def stress_wgs(world, device, n_workers: int, out_root: str) -> dict:
                                 "K3_serial": k3_serial,
                                 "K3_fanout": k3_fan_parent},
             "launches_workers": {
-                "K1": stats.extras.get("worker_launches_K1", 0),
+                "K1": stats.extras.get("served_launches_K1", 0),
                 "K3": k3_workers},
+            # the host-only workers: each one's CUDA state after its last
+            # align and type task, and what the device server ran for them
+            "workers_cuda_initialized": (
+                [r["cuda_initialized"] for r in engine.workers.values()]
+                + [r["cuda_initialized"] for r in typer.worker_runs]),
+            "workers_torch_imported": (
+                [r["torch_imported"] for r in engine.workers.values()]
+                + [r["torch_imported"] for r in typer.worker_runs]),
+            "served": engine.server.served,
             "n_chain_extensions": jobs, f"nw_jobs_on_{dev}": on_dev,
             "loci": {r.locus: [r.n_clusters, r.n_reads_used]
                      for r in res_s}}

@@ -94,6 +94,28 @@ def test_graft_entry_runs_with_jax_and_the_jax_package_blocked():
         proc.stderr[-2000:]
 
 
+def test_the_worker_path_imports_no_torch():
+    """What a host-only worker imports (the CLI, which ``python -m
+    hla_la_tpu_torch`` re-imports in every spawned worker, the pool's
+    initializer and the typing worker) imports with torch blocked: those
+    modules name torch through ``_lazy.py`` and read it only on the device
+    path."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["torch"] = None
+        import hla_la_tpu_torch.__main__
+        from hla_la_tpu_torch.models import device_server, parallel_host
+        from hla_la_tpu_torch.models.typer import _typing_worker
+        assert not device_server.torch_imported()
+        assert not device_server.cuda_initialized()
+        print("OK")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "OK", \
+        proc.stderr[-2000:]
+
+
 def test_the_import_guard_sees_nested_imports(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text(textwrap.dedent("""
@@ -421,8 +443,9 @@ REWRITTEN_UNITS = {
         "ReadAligner._align_jobs_soa", "ReadAligner._align_core_raw"},
     # type_all is the reference's text again (n_workers, worker_pool); the
     # fan-out differs where a worker's failure must end the run, where the
-    # device goes to the workers, where their K3 launches come back, and
-    # where unpaired chains are packed without their quality caches
+    # host-only workers' device calls go to a device server, where the K3
+    # launches made for them come back, and where unpaired chains are
+    # packed without their quality caches
     "models/typer": {
         "HLATyper.__init__", "HLATyper._type_locus",
         "HLATyper._setup_pair_ranges", "HLATyper._collect_locus_obs",
@@ -435,13 +458,15 @@ REWRITTEN_UNITS = {
     "models/pipeline": {"run_hla_typing", "_type_and_write", "align_shard",
                         "merge_shards_and_type"},
     # the packers and PackedAlignedPairs are the reference's text; the
-    # workers build the port's aligner on a device, take their share of the
-    # pointer budget and send their counters back; spawn_safe also passes
-    # a main module that has no file to re-run
+    # workers build a host-only aligner whose NW forward is the parent's
+    # device server, and send their counters and reports back; the pool
+    # starts and stops that server; spawn_safe also passes a main module
+    # that has no file to re-run
     "models/parallel_host": {
         "_init_worker", "_align_chunk", "_align_unpaired_chunk",
         "pack_reads", "spawn_safe", "ParallelAligner.__init__",
-        "ParallelAligner.align_pairs", "ParallelAligner.align_unpaired"},
+        "ParallelAligner.align_pairs", "ParallelAligner.align_unpaired",
+        "ParallelAligner.close"},
     # the device seam and the batched pass over all reads' NW jobs; the
     # backtrace's consumer _score_ops, the gene assignment and the result
     # record are the reference's text

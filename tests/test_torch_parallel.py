@@ -13,6 +13,7 @@ one-process run."""
 
 import filecmp
 import os
+import re
 
 import jax
 import numpy as np
@@ -311,13 +312,27 @@ def _typed(four_loci, tmp_path, tag, n_workers, typer=None, ref=False):
 
 @needs_spawn
 def test_parallel_typing_matches_serial(four_loci, tmp_path):
-    """Per-locus typing in two worker processes writes every file the
-    serial typer writes, byte for byte, and what the reference's typer
-    writes with two workers on the same inputs (where the reference cannot
-    spawn it types serially, into the same files)."""
+    """Per-locus typing in two host-only worker processes, whose device
+    calls this process serves, writes every file the serial typer writes,
+    byte for byte, and what the reference's typer writes with two workers
+    on the same inputs (where the reference cannot spawn it types serially,
+    into the same files)."""
+    pkg, _, _ = four_loci
     serial = _typed(four_loci, tmp_path, "serial", 1)
-    par = _typed(four_loci, tmp_path, "par", 2)
+    typer = HLATyper(pkg, TyperConfig(min_reads_for_typing_workers=1),
+                     device="cpu")
+    par = _typed(four_loci, tmp_path, "par", 2, typer=typer)
     _typed(four_loci, tmp_path, "ref", 2, ref=True)
+    # two host-only workers, served by this process: neither initialised
+    # CUDA, and the server ran their reductions (the plain version here:
+    # no K3 launch)
+    runs = typer.worker_runs
+    assert len(runs) == 2 and not any(r["cuda_initialized"] or
+                                      r["torch_imported"] for r in runs)
+    assert sorted(lc for r in runs for lc in r["loci"]) == sorted(typer.loci)
+    assert typer.served_launches == {"K3": 0}
+    assert all(r["k3_ms"] == [] and 0 < r["ready_s"] <= r["done_s"]
+               for r in runs)
     _assert_runs_match(str(tmp_path / "par"), str(tmp_path / "ref"),
                        bestguess_bytes=False)
     names = _tree(serial)
@@ -332,15 +347,18 @@ def test_parallel_typing_matches_serial(four_loci, tmp_path):
 @needs_spawn
 def test_a_failing_typing_worker_ends_the_run(four_loci, tmp_path,
                                               monkeypatch):
-    """A worker that cannot reach its device raises in the parent: the
-    typer does not quietly type serially instead (the reference does)."""
+    """A worker whose device server cannot reach its device raises in the
+    parent with the server's message: the typer does not quietly type
+    serially instead (the reference does)."""
     pkg, _, _ = four_loci
     typer = HLATyper(pkg, TyperConfig(min_reads_for_typing_workers=1),
                      device="cpu")
-    # the workers are told to type on a card, and this machine has none
+    # the workers are served on a card, and this machine has none
     typer.device = torch.device("cuda")
     monkeypatch.setattr(_build, "library", lambda: None)
-    with pytest.raises(RuntimeError, match="is_available"):
+    with pytest.raises(RuntimeError,
+                       match="device server on cuda: RuntimeError: device "
+                             "cuda requested but .*is_available"):
         _typed(four_loci, tmp_path, "failing", 2, typer=typer)
     assert not os.path.exists(
         tmp_path / "failing" / "hla" / "R1_bestguess.txt")
@@ -352,7 +370,11 @@ def test_parallel_aligner_packs_equal_the_serial_aligner(four_loci):
     aligner's pairs pack to, its workers' counters sum to the serial
     aligner's, and unpaired reads come back in order; the packs also equal
     the reference's on the same reads (its ParallelAligner's where it can
-    spawn, else its serial aligner's pairs through its own packer)."""
+    spawn, else its serial aligner's pairs through its own packer).  The
+    workers stay on the host: every NW job ran in this process's device
+    server, no worker initialised CUDA, and their regions together stay
+    within one pointer budget."""
+    from hla_la_tpu_torch.models import aligner
     pkg, fq, rawu = four_loci
     serial = ReadAligner(pkg, device="cpu")
     want = pack_aligned_pairs(serial.align_pairs(fq, 260, 25))
@@ -377,6 +399,23 @@ def test_parallel_aligner_packs_equal_the_serial_aligner(four_loci):
         assert getattr(par.stats, key) == getattr(serial.stats, key), key
     assert par.stats.extras["nw_jobs_on_cpu"] == \
         par.stats.n_chain_extensions == serial.stats.n_chain_extensions
+    served = par.server.served
+    assert served["nw_jobs"] == par.stats.n_chain_extensions == \
+        par.stats.extras["served_nw_jobs"]
+    assert par.stats.extras["served_nw_calls"] == served["requests"] > 0
+    # the plain version on the CPU: no kernel launch, in the server or
+    # anywhere else
+    assert {k: par.stats.extras.get(f"served_launches_{k}", 0)
+            for k in ("K1", "K2", "K3")} == served["launches"] == \
+        {"K1": 0, "K2": 0, "K3": 0}
+    assert 1 <= len(par.workers) <= 2 and par.server.lost == []
+    for rep in par.workers.values():
+        assert rep["requests"] > 0
+        # host-only: a worker never even imports torch
+        assert rep["torch_imported"] is False
+        assert rep["cuda_initialized"] is False
+    assert set(par.server.region_peak) == set(par.workers)
+    assert sum(par.server.region_peak.values()) <= aligner.NW_POINTER_BUDGET
     if ref_parallel_host.spawn_safe():
         ref_par = ref_parallel_host.ParallelAligner(pkg.dir, 2)
         try:
@@ -399,21 +438,141 @@ def test_parallel_aligner_packs_equal_the_serial_aligner(four_loci):
         [u.log_likelihood for u in ref_u]
 
 
-def test_a_worker_takes_its_share_of_the_pointer_budget(four_loci,
-                                                        monkeypatch):
-    """n workers together pin what one process would: each divides the
-    aligner's pointer budget by n, and builds the port's aligner on the
-    device it was given."""
-    from hla_la_tpu_torch.models import aligner, parallel_host
-    pkg, _, _ = four_loci
-    monkeypatch.setattr(aligner, "NW_POINTER_BUDGET", 1000)
+def test_the_regions_of_all_workers_stay_within_one_pointer_budget(
+        four_loci, monkeypatch):
+    """Four workers' aligners (here in this process, each with its own
+    connection) cut their NW calls to their share of NW_POINTER_BUDGET: no
+    region grows past it, so all four together stay within one budget,
+    and the alignments are the serial aligner's, bit for bit."""
+    from hla_la_tpu_torch.models import aligner, device_server, parallel_host
+    pkg, fq, _ = four_loci
+    fq = fq[:300]
+    want = pack_aligned_pairs(
+        ReadAligner(pkg, device="cpu").align_pairs(fq, 260, 25))
+    monkeypatch.setattr(aligner, "NW_POINTER_BUDGET", 4 << 20)
     monkeypatch.setattr(parallel_host, "_WORKER_ALIGNER", None)
-    parallel_host._init_worker(pkg.dir, None, 20, "", device="cpu",
-                               n_workers=4)
-    assert aligner.NW_POINTER_BUDGET == 250
-    worker = parallel_host._WORKER_ALIGNER
-    assert isinstance(worker, ReadAligner) and worker.device.type == "cpu"
-    assert aligner.jobs_per_call(9, 5) == 5      # 250 // (10 * 5)
+    monkeypatch.setattr(device_server, "_CLIENT", None)
+    share = aligner.NW_POINTER_BUDGET // 4
+    server = device_server.DeviceServer("cpu")
+    try:
+        clients = []
+        for part in range(4):
+            parallel_host._init_worker(pkg.dir, None, 20, "",
+                                       server=server.initargs,
+                                       region_share=share)
+            worker = parallel_host._WORKER_ALIGNER
+            assert isinstance(worker, ReadAligner)
+            assert isinstance(worker._nw, device_server.ServedNWRunner)
+            assert worker.device.type == "cpu"
+            # 332 jobs of L = 90 (inputs and outputs) fit a share; the
+            # whole budget's pointers alone would take 1,440
+            assert worker._nw.jobs_per_call(90, 32) == 332 < \
+                aligner.jobs_per_call(90, 32) == 1440
+            got = pack_aligned_pairs(worker.align_pairs(fq, 260, 25))
+            for key, value in want.items():
+                if isinstance(value, str):
+                    assert got[key] == value, key
+                else:
+                    np.testing.assert_array_equal(got[key], value,
+                                                  err_msg=key)
+            assert worker.stats.extras["served_nw_calls"] > 1
+            clients.append(device_server.client())
+        assert len({id(c) for c in clients}) == 4
+        assert all(0 < c.region_bytes <= share for c in clients)
+        assert sum(c.region_bytes for c in clients) <= \
+            aligner.NW_POINTER_BUDGET
+        assert max(server.region_peak.values()) <= share
+        assert not torch.cuda.is_initialized()
+    finally:
+        server.stop()
+
+
+@pytest.mark.parametrize("W", [10, 32, 48])
+def test_served_calls_equal_the_local_calls(W, monkeypatch):
+    """ServedNWRunner.run (K1's and K2's bands) bit for bit against a local
+    NWRunner.run on the CPU, with and without pointers; the served cluster
+    x read products and pair reduction against ops/pair_ll's on the same
+    seeded inputs; each reply's jobs and device reach the statistics."""
+    from hla_la_tpu_torch.models import device_server
+    from hla_la_tpu_torch.ops.pair_ll import cluster_read_ll
+    rng = np.random.default_rng(12345 + W)
+    B, L = 301, 101
+    reads = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    lens = rng.integers(60, L + 1, B).astype(np.int64)
+    refs = rng.integers(0, 4, (B, L + W)).astype(np.uint8)
+    C, J, R = 9, 13, 70
+    onehot = (rng.random((C, J, 6)) < 0.3).astype(np.float32)
+    contrib = rng.normal(-1, 0.5, (R, J, 6)).astype(np.float32)
+    mismatch = rng.normal(0, 1, (R, J, 6)).astype(np.float32)
+    Lmat = rng.normal(-30, 6, (C, 257)).astype(np.float32)
+    monkeypatch.setattr(device_server, "_CLIENT", None)
+    server = device_server.DeviceServer("cpu")
+    try:
+        served = device_server.connect(*server.initargs)
+        runner = device_server.ServedNWRunner(served)
+        local = NWRunner("cpu")
+        got = runner.run(reads, lens, refs)
+        want = local.run(reads, lens, refs)
+        assert len(got) == len(want) == 4
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(runner.scores(reads, lens, refs),
+                                      local.scores(reads, lens, refs))
+        assert runner.run(reads, lens, refs, pointers=False)[3] is None
+        assert runner.stats.extras == {"nw_jobs_on_cpu": 3 * B,
+                                       "served_nw_calls": 3,
+                                       "served_nw_jobs": 3 * B}
+        assert server.served["nw_jobs"] == 3 * B
+        ll, mm = device_server.served_cluster_read_ll(onehot, contrib,
+                                                      mismatch, "cpu")
+        want_ll, want_mm = cluster_read_ll(onehot, contrib, mismatch, "cpu")
+        np.testing.assert_array_equal(ll, want_ll)
+        np.testing.assert_array_equal(mm, want_mm)
+        np.testing.assert_array_equal(
+            device_server.served_pair_ll_reduction(Lmat, "cpu"),
+            pair_ll_reduction(Lmat, "cpu"))
+        assert served.requests == server.served["requests"] == 5
+        assert served.report()["cuda_initialized"] is False
+    finally:
+        server.stop()
+
+
+class _NeverDone:
+    """A pool's result iterator that never yields."""
+
+    def next(self, timeout=None):
+        import multiprocessing as mp
+        raise mp.TimeoutError
+
+
+def test_a_worker_lost_mid_request_ends_the_wait_and_frees_the_server():
+    """A worker that sends a request and dies before the reply: the server
+    thread goes on serving the others, and the parent's wait on the pool
+    raises instead of blocking.  An exception in the server comes back to
+    the requesting worker with the server's message."""
+    from hla_la_tpu_torch.models import device_server
+    server = device_server.DeviceServer("cpu")
+    try:
+        lost = device_server.DeviceClient(*server.initargs)
+        lost.conn.send({"kind": "pair_ll_reduction", "n_in": 1,
+                        "arrays": []})
+        lost.conn.close()
+        alive = device_server.DeviceClient(*server.initargs)
+        pair = device_server.ServedNWRunner(alive)
+        reads = np.zeros((2, 8), np.uint8)
+        assert pair.run(reads, np.full(2, 8), np.zeros((2, 12), np.uint8))
+        with pytest.raises(RuntimeError, match="device server on cpu: "
+                                               "ValueError: unknown"):
+            alive.call("no_such_request", [], [])
+        assert server.lost == [os.getpid()]
+        with pytest.raises(RuntimeError, match="exited while the device "
+                                               "server held"):
+            list(server.watch(_NeverDone(), poll_s=0.01))
+    finally:
+        server.stop()
+    with pytest.raises(RuntimeError, match="closed the connection"):
+        alive.call("nw", [], [])
 
 
 def test_spawn_safe_follows_the_main_module(monkeypatch, tmp_path):
@@ -487,6 +646,20 @@ def test_cli_max_threads_matches_one_process(cli_world, capfd):
     jobs = [int(line.split(":")[1]) for line in log.splitlines()
             if "n_chain_extensions" in line or "nw_jobs_on_cpu" in line]
     assert len(jobs) == 2 and jobs[0] == jobs[1] > 0
+    # the workers' jobs (all but the parent's insert-size estimate) ran in
+    # the parent's device server; the workers stayed on the host
+    served = re.search(r"device server on cpu: \d+ requests from (\d) "
+                       r"workers, (\d+) NW jobs", log)
+    workers_jobs = re.search(r"served_nw_jobs: (\d+)", log)
+    assert served and workers_jobs and 1 <= int(served.group(1)) <= 2
+    assert 0 < int(served.group(2)) == int(workers_jobs.group(1)) < jobs[0]
+    reports = re.findall(r"alignment worker \d+: CUDA initialised (\w+) "
+                         r"after its last task \(torch imported: (\w+)\)",
+                         log)
+    assert 1 <= len(reports) <= 2 and set(reports) == {("False", "False")}
+    assert len(re.findall(r"alignment worker \d+ ready, host-only.*; torch "
+                          r"imported: False, CUDA initialised: False",
+                          log)) == 2
     _assert_same_files(out, single)
     ref_out = str(root / "ref_workers")
     assert ref_main(common + ["--outputDirectory", ref_out,

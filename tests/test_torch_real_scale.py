@@ -189,6 +189,10 @@ def test_bench_torch_on_the_cpu(bench_twin, workers):
     assert rec["window_reads_per_s"] == rec["median"]
     # no kernel launches on the CPU: every wrapper took its plain version
     assert rec["launches_workers"] == {"K1": 0, "K3": 0}
+    # a pool's workers are host-only; one process has none
+    assert len(rec["workers_torch_imported"]) == (0 if workers == 1 else 2)
+    assert not any(rec["workers_torch_imported"] +
+                   rec["workers_cuda_initialized"])
 
 
 # bench.py in one process (one CPU: its ReadAligner engine), with JAX on

@@ -68,6 +68,12 @@ def test_stress_imgt_torch_on_the_cpu(imgt_twin):
                for run in rec["typing_worker_runs"])
     assert rec["files"] >= 10
     assert rec["launches_workers"] == {"K1": 0, "K3": 0}
+    # the align and typing workers are host-only: none imported torch, and
+    # the align pool's device server ran every NW job they counted
+    assert len(rec["workers_torch_imported"]) >= 2
+    assert not any(rec["workers_torch_imported"] +
+                   rec["workers_cuda_initialized"])
+    assert rec["served"]["nw_jobs"] == rec["n_chain_extensions"]
     sh = rec["sharded"]
     assert sh["ranks"] == 2 and sh["mesh"] == "2x1" and sh["backend"] == "gloo"
     assert [r["reads"] for r in sh["per_rank"]] == \

@@ -30,6 +30,14 @@ def test_stress_long_torch_on_the_cpu(tmp_path):
     assert rec["longest_nw_job_L"] == 50_000
     assert rec["truth_accuracy"] > 0.9
     assert rec["nw_jobs_on_cpu"] == rec["n_chain_extensions"] > 0
+    # where four align workers ran, they were host-only and served by the
+    # parent: their reports after their last task
+    assert len(rec["workers_torch_imported"]) == \
+        (4 if rec["align_workers"] else 0)
+    assert not any(rec["workers_torch_imported"] +
+                   rec["workers_cuda_initialized"])
+    assert rec["served"] is None if not rec["align_workers"] else \
+        0 < rec["served"]["nw_jobs"] <= rec["n_chain_extensions"]
     for locus in ("A", "B"):
         got = {a for aid in rec["calls"][locus] for a in aid.split(";")}
         assert {f"{locus}*02:01", f"{locus}*03:01"} <= got

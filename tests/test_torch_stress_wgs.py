@@ -60,6 +60,11 @@ def test_stress_wgs_torch_on_the_cpu(wgs_twin):
     assert rec["pairs_aligned"] > 0.95 * rec["pairs"] > 9000
     assert rec["nw_jobs_on_cpu"] == rec["n_chain_extensions"] > 0
     assert rec["files"] >= 17
+    # host-only align and typing workers, served by the parent
+    assert len(rec["workers_torch_imported"]) >= 3
+    assert not any(rec["workers_torch_imported"] +
+                   rec["workers_cuda_initialized"])
+    assert rec["served"]["nw_jobs"] == rec["n_chain_extensions"]
 
 
 # stress_wgs.py's main with two CPUs (a pool of 2 workers), on the world
