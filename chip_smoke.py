@@ -198,16 +198,28 @@ and (t) run before (e), while the IMGT-scale world is still being built;
   (ae) soak.py's twin on cuda: seeds 1000-1003 of mode hla (BAM, CRAM,
       FASTQ pair, long reads) and seed 1000 of each other mode, all 13
       passing; the three kernels held to their plain versions at the
-      largest launch each made.
+      largest launch each made;
+  (af) ``--action KIR --sharded 2`` on the world of (k), two gloo ranks
+      sharing the card: the call, posterior (within 1e-3) and reads2Genes
+      of (k)'s one-process run; every NW call's scores and the likelihood
+      rows bit-equal to (k)'s (``LinearALTsTyper.trace``), the pair LL
+      within rtol 1e-6 / atol 1e-2; every NW job on the card on each rank;
+      each rank's K1 and K3 launches and largest launch, and K1 and K3 held
+      to their plain versions at the ranks' largest shapes;
+  (ag) ``--action KIRsimulation --backend sharded`` (one rank on the card,
+      through the --backend translation) on the small KIR world of (m) and
+      ``--action TestHLATyping --sharded 2``: the planted calls, printed as
+      the one-process runs print them, K1 and K3 launched on every rank.
   The three real-scale worlds and tpu_e2e.py's world are built in
   processes of their own from the start, beside the others (the four-locus
   world and the long reads of (aa) once the world of (e) is there), and
-  (u)-(ae) run last, (ab) before (aa).
+  (u)-(ag) run last, (ab) before (aa).
 
 The last two lines are the card's name and power limit, and
 {"ok": true, "device": {...}}; the line before them is the kernels' JSON
-record, one entry per kernel and main path (K1 runs on thirteen, K2 on
-five, K3 on sixteen; a path of (z)-(ae) also says where its launches ran),
+record, one entry per kernel and main path (K1 runs on fourteen, K2 on
+five, K3 on seventeen; a path of (z)-(af) also says where its launches
+ran),
 with the launches of that path's run and the kernel's time beside its
 bound: the larger of its bytes (inputs read once, outputs written once) over
 the card's memory rate and its operations over the card's peak rate for
@@ -1173,6 +1185,8 @@ def kernel_records() -> dict:
     e2e = "tpu_e2e.py's twin, phase (ac)"
     scaling = "bench_scaling.py's twin, full_step on 4 ranks, phase (ad)"
     soak = "soak.py's twin, 13 randomized CLI trials, phase (ae)"
+    kir_ranks = "linear-ALT typing on 2 ranks (--action KIR --sharded 2), " \
+        "phase (af)"
     cohort = "a cohort of two samples (--action validate), phase (r)"
     remap = "--action remapAndReduce, phase (s)"
     workers = "short reads in 4 worker processes, phase (p)"
@@ -1211,7 +1225,10 @@ def kernel_records() -> dict:
             "pair_scaling": {**pair, "path": scaling, "ran_in": "4 ranks"},
             "nw_soak": {**nw, "path": soak, "ran_in": "parent"},
             "nw_long_soak": {**nw_long, "path": soak, "ran_in": "parent"},
-            "pair_soak": {**pair, "path": soak, "ran_in": "parent"}}
+            "pair_soak": {**pair, "path": soak, "ran_in": "parent"},
+            "nw_kir_ranks": {**nw, "path": kir_ranks, "ran_in": "2 ranks"},
+            "pair_kir_ranks": {**pair, "path": kir_ranks,
+                               "ran_in": "2 ranks"}}
 
 
 def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> dict:
@@ -1297,13 +1314,15 @@ def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> dict:
     return one_process
 
 
-def kir_asm_phases(nw_kir: dict, pair_kir: dict, nw_asm: dict) -> None:
+def kir_asm_phases(nw_kir: dict, pair_kir: dict, nw_asm: dict) -> dict:
     """Phases (j)-(m): the kernels at the shapes of --action KIR and
-    --action ASM, and those two main paths."""
+    --action ASM, and those two main paths.  Returns (k)'s world, run and
+    the linear-ALT typer's trace of it, which (af) holds its ranks to."""
     from hla_la_tpu_torch.graph.package import GraphPackage
     from hla_la_tpu_torch.models.aligner import jobs_per_call
     from hla_la_tpu_torch.models.asm import AssemblyTyper
     from hla_la_tpu_torch.models.kir_package import KirPackage
+    from hla_la_tpu_torch.models.linear_alts import LinearALTsTyper
     from hla_la_tpu_torch.sim import asm_world, kir_world
 
     phase("(j) K1, K2, K3 at the linear-ALT and assembly typers' shapes")
@@ -1326,8 +1345,13 @@ def kir_asm_phases(nw_kir: dict, pair_kir: dict, nw_asm: dict) -> None:
     world_kir = built_world("kir_world")
     print(f"world: {world_kir.panel}; {world_kir.n_pairs} pairs from "
           f"{world_kir.truth}")
-    res = run_action("KIR", "cuda", world_kir,
-                     os.path.join(WORLD_DIR, "runs", "kir_cuda"))
+    LinearALTsTyper.trace = []
+    try:
+        res = run_action("KIR", "cuda", world_kir,
+                         os.path.join(WORLD_DIR, "runs", "kir_cuda"))
+    finally:
+        trace, LinearALTsTyper.trace = LinearALTsTyper.trace, None
+    kir_one = {"world": world_kir, "run": res, "trace": trace}
     check_launched(res, ("K1", "K3"))
     check_kir(res, world_kir)
     # calls of jobs_per_call jobs, not one per read: two passes over the
@@ -1359,6 +1383,7 @@ def kir_asm_phases(nw_kir: dict, pair_kir: dict, nw_asm: dict) -> None:
     compare_kir_asm_devices(kir_world(WORLD_DIR, **SMALL_KIR_WORLD),
                             asm_world(WORLD_DIR, **SMALL_WORLD))
     sync()
+    return kir_one
 
 
 def pinned_bytes() -> tuple[int, int]:
@@ -1843,15 +1868,23 @@ def flag_phases() -> None:
     sync()
 
 
-def run_subprocess_cli(argv: list, tag: str) -> str:
-    """The port's CLI in a process of its own (so that every rank's log is
-    caught); returns its standard error."""
+def run_subprocess_cli(argv: list, tag: str) -> tuple[str, str]:
+    """The port's CLI in a process of its own (so that every rank's log and
+    printed lines are caught); returns its standard output and error."""
     proc = subprocess.run([sys.executable, "-m", "hla_la_tpu_torch", *argv],
                           cwd=ROOT, capture_output=True, text=True)
     sys.stderr.write(proc.stderr[-4000:])
     if proc.returncode != 0:
         fail(f"{tag}: exit code {proc.returncode}")
-    return proc.stderr
+    return proc.stdout, proc.stderr
+
+
+def rank_launches(log: str) -> list[dict]:
+    """Each rank's kernel launches, from the "rank r: exit code 0" lines
+    that the CLI logs once its ranks are done."""
+    return [dict((k, int(n)) for k, n in re.findall(r"(K\d) (\d+)", ln))
+            for ln in re.findall(r"rank \d+: exit code 0, kernel launches "
+                                 r"(.*)", log)]
 
 
 def check_sharded_cli(world, one: dict, n_ranks: int, tag: str) -> dict:
@@ -1862,7 +1895,7 @@ def check_sharded_cli(world, one: dict, n_ranks: int, tag: str) -> dict:
     out_dir = os.path.join(WORLD_DIR, "runs", tag)
     shutil.rmtree(out_dir, ignore_errors=True)
     t0 = time.perf_counter()
-    log = run_subprocess_cli(
+    _, log = run_subprocess_cli(
         ["--action", "HLA", *world.cli_args(), "--graph", world.graph,
          "--sampleID", "S1", "--outputDirectory", out_dir, "--device",
          "cuda", "--sharded", str(n_ranks)], tag)
@@ -1872,9 +1905,7 @@ def check_sharded_cli(world, one: dict, n_ranks: int, tag: str) -> dict:
     if len(jobs) != n_ranks or jobs != on_card or jobs[0] != one["nw_jobs"]:
         fail(f"{tag}: NW jobs per rank {jobs}, on a card {on_card}, "
              f"one process {one['nw_jobs']}")
-    launches = [dict((k, int(n)) for k, n in re.findall(r"(K\d) (\d+)", ln))
-                for ln in re.findall(r"rank \d+: exit code 0, kernel "
-                                     r"launches (.*)", log)]
+    launches = rank_launches(log)
     if len(launches) != n_ranks or any(
             r["K1"] <= 0 or r["K3"] <= 0 for r in launches):
         fail(f"{tag}: kernel launches per rank {launches}")
@@ -2437,6 +2468,144 @@ def twin_phases(rec: dict) -> None:
     sync()
 
 
+def same_trace(got: list, want: list, tag: str) -> float:
+    """A linear-ALT trace (LinearALTsTyper.trace) against another: every NW
+    call's scores and the likelihood rows bit for bit, the pair matrix
+    within rtol PAIR_RTOL / atol PAIR_ATOL.  Returns its max abs error."""
+    import numpy as np
+    if [t[0] for t in got] != [t[0] for t in want]:
+        fail(f"{tag}: traced calls {[t[0] for t in got]}, one process "
+             f"{[t[0] for t in want]}")
+    err = 0.0
+    for g, w in zip(got, want):
+        if not np.array_equal(g[1], w[1]):
+            fail(f"{tag}: {'NW scores' if g[0] == 'nw_scores' else 'rows'}"
+                 f" differ from the one-process run's")
+        if g[0] == "pair":
+            err = max(err, float(np.abs(g[2] - w[2]).max()))
+            if not np.allclose(g[2], w[2], rtol=PAIR_RTOL, atol=PAIR_ATOL):
+                fail(f"{tag}: pair LL max abs err {err:.4g} beyond "
+                     f"rtol={PAIR_RTOL} atol={PAIR_ATOL}")
+    return err
+
+
+def same_printed(got: list, want: list, tag: str) -> None:
+    """Printed lines equal but for a posterior, which may move by Q_TOL."""
+    pat = re.compile(r"posterior ([0-9.]+)")
+    if [pat.sub("posterior P", ln) for ln in got] != \
+            [pat.sub("posterior P", ln) for ln in want]:
+        fail(f"{tag}: printed {got}, one process {want}")
+    for a, b in zip(pat.findall("\n".join(got)), pat.findall("\n".join(want))):
+        if abs(float(a) - float(b)) > Q_TOL:
+            fail(f"{tag}: posterior {a} against {b}")
+
+
+def sharded_action_phases(kir_one: dict, rec: dict) -> None:
+    """Phases (af) and (ag): the sharded backend on --action KIR,
+    KIRsimulation and TestHLATyping, each against its one-process run on
+    the card."""
+    from hla_la_tpu_torch.parallel import launch
+    from hla_la_tpu_torch.sim import kir_world
+
+    world, one = kir_one["world"], kir_one["run"]
+    phase("(af) --action KIR --sharded 2 on the world of (k): two gloo "
+          "ranks sharing the card")
+    t0 = time.perf_counter()
+    out_dir = os.path.join(WORLD_DIR, "runs", "kir_sharded")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log = io.StringIO()
+    # the ranks are new processes: their launch counts start at 0
+    with captured_stderr(log):
+        ranks = launch.run_ranks(launch.rank_cli, 2, "cuda", (
+            ["--action", "KIR", *world.cli_args(), "--sampleID", "S1",
+             "--outputDirectory", out_dir, "--device", "cuda", "--sharded",
+             "2"], True))
+    wall = time.perf_counter() - t0
+    if [r[0] for r in ranks] != [0, 0]:
+        fail(f"KIR on 2 ranks: exit codes {[r[0] for r in ranks]}")
+    got, want = kir_outputs({"dir": out_dir}), kir_outputs(one)
+    if got[0] != want[0] or got[2] != want[2] \
+            or abs(got[1] - want[1]) > Q_TOL:
+        fail(f"KIR on 2 ranks: called {got[0]} (posterior {got[1]}), one "
+             f"process {want[0]} ({want[1]}); reads2Genes "
+             f"{'equal' if got[2] == want[2] else 'differ'}")
+    check_kir({"dir": out_dir}, world)
+    err = max(same_trace(r[3], kir_one["trace"], f"KIR rank {rank}")
+              for rank, r in enumerate(ranks))
+    n_scores = sum(len(t[1]) for t in kir_one["trace"]
+                   if t[0] == "nw_scores")
+    text = log.getvalue()
+    jobs = [int(n) for n in re.findall(r"n_chain_extensions: (\d+)", text)]
+    on_card = [int(n) for n in re.findall(r"nw_jobs_on_cuda: (\d+)", text)]
+    if jobs != [one["nw_jobs"]] * 2 or on_card != jobs:
+        fail(f"KIR on 2 ranks: NW jobs per rank {jobs}, on the card "
+             f"{on_card}, one process {one['nw_jobs']}")
+    launches = [r[1] for r in ranks]
+    largest = [r[2] for r in ranks]
+    if any(lc["K1"] <= 0 or lc["K3"] <= 0 for lc in launches):
+        fail(f"KIR on 2 ranks: launches per rank {launches}")
+    for line in re.findall(r"linear-ALT pair reduction on rank .*", text):
+        print(line)
+    H, R = next(t[1] for t in kir_one["trace"] if t[0] == "pair").shape
+    print(f"KIR on 2 ranks: the call, posterior (|d| "
+          f"{abs(got[1] - want[1]):.3g}) and reads2Genes of (k); {n_scores} "
+          f"NW scores and the {H} x {R} likelihood rows bit-equal, pair LL "
+          f"max abs err {err:.4g}; {jobs[0]} NW jobs per "
+          f"rank, all on the card; launches per rank {launches}, largest "
+          f"per rank {largest}; whole run with the ranks' start "
+          f"{wall:.3f} s (one process {one['wall_s']:.3f} s)")
+    for key, kernel in (("nw_kir_ranks", "K1"), ("pair_kir_ranks", "K3")):
+        rec[key]["launches"] = sum(lc[kernel] for lc in launches)
+        rec[key]["launches_per_rank"] = [lc[kernel] for lc in launches]
+    check_nw(*max((lg["K1"] for lg in largest), key=lambda s_: s_[0]),
+             rec["nw_kir_ranks"], make_world=kir_nw_world)
+    check_pair(*max((lg["K3"] for lg in largest), key=lambda s_: s_[1]),
+               rec["pair_kir_ranks"])
+    sync()
+    print(f"(af) took {time.perf_counter() - t0:.1f} s")
+
+    phase("(ag) --action KIRsimulation --backend sharded (one rank) and "
+          "--action TestHLATyping --sharded 2 on the card")
+    t0 = time.perf_counter()
+    small = kir_world(WORLD_DIR, **SMALL_KIR_WORLD)
+    work = os.path.join(WORLD_DIR, "runs", "test_typing")
+    shutil.rmtree(work, ignore_errors=True)
+    for tag, argv, flags, n_ranks in (
+            ("--action KIRsimulation", ["--action", "KIRsimulation",
+                                        "--ALTpanel", small.panel, "--seed",
+                                        "5"], ["--backend", "sharded"], 1),
+            ("--action TestHLATyping", ["--action", "TestHLATyping"],
+             ["--sharded", "2"], 2)):
+        if tag.endswith("TestHLATyping"):
+            argv = argv + ["--workingDir", os.path.join(work, "one")]
+        t1 = time.perf_counter()
+        want = run_cli(argv, "cuda", tag)
+        one_s = time.perf_counter() - t1
+        if tag.endswith("TestHLATyping"):
+            argv = argv[:-1] + [os.path.join(work, "sharded")]
+        t1 = time.perf_counter()
+        out, log = run_subprocess_cli(argv + ["--device", "cuda", *flags],
+                                      f"{tag} {' '.join(flags)}")
+        ranks_s = time.perf_counter() - t1
+        lines = out.splitlines()
+        same_printed(lines, want["lines"], f"{tag} {' '.join(flags)}")
+        if "OK" not in lines[0] and lines[-1] != "OK":
+            fail(f"{tag} {' '.join(flags)}: printed {lines}")
+        launches = rank_launches(log)
+        if len(launches) != n_ranks or any(
+                lc["K1"] <= 0 or lc["K3"] <= 0 for lc in launches):
+            fail(f"{tag} {' '.join(flags)}: launches per rank {launches}")
+        if flags[0] == "--backend" and \
+                "--backend sharded: --device cuda, --sharded 1" not in log:
+            fail("--backend sharded was not taken as one rank on the card")
+        print(f"{tag} {' '.join(flags)}: {n_ranks} rank(s) print the one-"
+              f"process lines {lines}; launches per rank {launches}; "
+              f"{ranks_s:.3f} s with the process and its ranks' start (one "
+              f"process {one_s:.3f} s, launches {want['launches']})")
+    sync()
+    print(f"(ag) took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2471,7 +2640,8 @@ def main() -> int:
     try:
         one_process = hla_phases(rec["nw"], rec["pair"], rec["nw_long"],
                                  rec["pair_long"])
-        kir_asm_phases(rec["nw_kir"], rec["pair_kir"], rec["nw_asm"])
+        kir_one = kir_asm_phases(rec["nw_kir"], rec["pair_kir"],
+                                 rec["nw_asm"])
         cohort_phases(one_process, rec)
         flag_phases()
         worker_phases(one_process, rec)
@@ -2479,6 +2649,7 @@ def main() -> int:
         real_scale_phases(rec)
         imgt_phases(rec)
         twin_phases(rec)
+        sharded_action_phases(kir_one, rec)
     finally:
         stop_world_builds()
 

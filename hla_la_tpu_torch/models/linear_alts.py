@@ -14,6 +14,15 @@ are gathered and run through the batched banded-NW forward on the device
 stay on the host, batched, and give the reference's per-read numbers.  The
 diploid pair reduction goes through ``ops/pair_ll.pair_ll_reduction`` (K3 on
 a card) with haplotypes as "clusters".
+
+With ``sharded`` (a ``parallel.mesh.Mesh``: the reference's
+``backend="sharded"``) every rank of the mesh makes the typer over the same
+reads and calls it in the same order: each NW call's jobs are split over
+all ranks (``parallel.mesh.ShardedNW``) and every rank gets the whole
+result back, and the pair reduction runs over the mesh's reads x clusters
+axes (``pair_ll_reduction_sharded``: reads over "data", K3's tile list over
+"model").  Seeding, backtrace, scoring and the gene assignment stay host
+work, repeated on every rank.
 """
 
 from __future__ import annotations
@@ -27,9 +36,10 @@ from ..io.fastq import FastqRead
 from ..mapping.kmer_index import KmerIndex
 from ..mapping.seeder import Seeder
 from ..ops.banded_nw import banded_nw_backtrace
-from ..ops.pair_ll import pair_ll_reduction
+from ..ops.pair_ll import pair_ll_reduction, pair_tiles
 from ..sim.read_sim import revcomp
 from ..utils.phred import phred_to_p_correct_table
+from ..utils.timing import log_progress
 from .aligner import NWRunner, gather_ref_windows
 
 _ENC = np.full(256, 4, dtype=np.uint8)
@@ -56,14 +66,21 @@ class LinearALTsResult:
 
 
 class LinearALTsTyper:
+    # a list while a caller holds one run to another (the tests, chip_smoke):
+    # each NW call's scores and each pair reduction's L [H, R] and pair
+    # matrix are appended, in call order
+    trace: list | None = None
+
     def __init__(self, haplotypes: dict[str, str], band: int = 32,
                  kmer_k: int = 20,
                  genes: dict[str, tuple[int, int]] | None = None,
-                 n_is_gap: bool = False, *, device: str | torch.device):
+                 n_is_gap: bool = False, *, device: str | torch.device,
+                 sharded=None):
         """haplotypes: {name: sequence} — the equal-length ALT panel
         (equal length is the reference's convention; not required here).
         genes: {gene: (start, stop)} intervals in panel coordinates.
-        device: where the NW forward and the pair reduction run.
+        device: where the NW forward and the pair reduction run; with
+        `sharded` (a rank's parallel.mesh.Mesh) the rank's own device.
 
         Alignment gaps ('-'/'_'/'.', plus 'N' when `n_is_gap` — the
         KirPackage equal-length block stores gaps as N) are STRIPPED for
@@ -92,7 +109,8 @@ class LinearALTsTyper:
         self.seeder = Seeder(self.index)
         self.band = band
         self.genes = genes or {}
-        self._nw = NWRunner(device)
+        self.sharded = sharded
+        self._nw = NWRunner(device if sharded is None else sharded.device)
         self.device = self._nw.device
         self.stats = self._nw.stats
         self._table = phred_to_p_correct_table(conservative_cap=0.999,
@@ -196,8 +214,10 @@ class LinearALTsTyper:
         gather_ref_windows(self._hap_enc, self._hap_offsets, self._hap_lens,
                            seq_idx, lo, L + W, refs_arr)
         from .. import native
-        for a, b, (scores, end_k, end_state, pointers) in self._nw.run_jobs(
+        for a, b, (scores, end_k, end_state, pointers) in self._run_jobs(
                 reads_arr, lens_arr, refs_arr):
+            if LinearALTsTyper.trace is not None:
+                LinearALTsTyper.trace.append(("nw_scores", scores.copy()))
             live = scores > -1e29
             sl = slice(a, b)
             bt = (native.nw_backtrace_batch(pointers, lens_arr[sl], end_k,
@@ -214,6 +234,24 @@ class LinearALTsTyper:
                 qual_u[job_row[sl]], seq_idx[sl], lo[sl])
             job_ll[jobs[sl]] = ll
             job_live[jobs[sl]] = live
+
+    def _run_jobs(self, reads_arr, lens_arr, refs_arr):
+        """NWRunner.run_jobs: the forward over all jobs in calls of
+        jobs_per_call jobs.  With a mesh each call goes through ShardedNW:
+        its jobs split over every rank, the whole result on each."""
+        if self.sharded is None:
+            yield from self._nw.run_jobs(reads_arr, lens_arr, refs_arr)
+            return
+        from ..parallel.mesh import ShardedNW
+        n, L = reads_arr.shape
+        W = refs_arr.shape[1] - L
+        sharded_nw = ShardedNW(self.sharded.all_data(), L, W,
+                               self._nw.scoring, self.stats)
+        step = self._nw.jobs_per_call(L, W)
+        for lo in range(0, n, step):
+            hi = min(lo + step, n)
+            yield lo, hi, sharded_nw(reads_arr[lo:hi], lens_arr[lo:hi],
+                                     refs_arr[lo:hi])
 
     def _score_ops_batch(self, ops: np.ndarray, n_ops: np.ndarray,
                          oriented: np.ndarray, qual: np.ndarray,
@@ -276,7 +314,18 @@ class LinearALTsTyper:
     def _call(self, L: np.ndarray, anchors: list) -> LinearALTsResult:
         """Best pair and its posterior over the upper triangle of the pair
         reduction of L [H, R], and the reads counted per gene."""
-        pair = pair_ll_reduction(L, self.device)
+        if self.sharded is not None:
+            m = self.sharded
+            (t_lo, t_n), (r_lo, r_hi) = m.pair_share(*L.shape)
+            log_progress(
+                f"linear-ALT pair reduction on rank {m.rank} of a "
+                f"{m.shape['data']} x {m.shape['model']} mesh (data x "
+                f"model): {L.shape[0]} haplotypes, tiles [{t_lo}, "
+                f"{t_lo + t_n}) of K3's {pair_tiles(L.shape[0])}, reads "
+                f"[{r_lo}, {r_hi}) of {L.shape[1]}")
+        pair = pair_ll_reduction(L, self.device, sharded=self.sharded)
+        if LinearALTsTyper.trace is not None:
+            LinearALTsTyper.trace.append(("pair", L, pair))
         H = len(self.names)
         iu = np.triu_indices(H)
         vals = pair[iu]

@@ -168,11 +168,10 @@ def rank_timed_pair_reduction(m, npy_path):
         events, pair_ll_diff_cuda.events = pair_ll_diff_cuda.events, None
     if events:
         torch.cuda.synchronize(m.device)
-    t_lo, t_hi = mesh_mod._share(mesh_mod.pair_tiles(C), m.model_index,
-                                 m.shape["model"])
+    tiles, reads = m.pair_share(C, R)
     return {"rank": m.rank, "pair": pair if m.rank == 0 else None,
-            "cold_s": cold, "warm_s": warm, "tile_range": [t_lo, t_hi - t_lo],
-            "reads": list(mesh_mod._share(R, m.data_index, m.shape["data"])),
+            "cold_s": cold, "warm_s": warm, "tile_range": list(tiles),
+            "reads": list(reads),
             "launches": kernel_launches()["K3"],
             "k3_ms": [s.elapsed_time(e) for s, e in events or ()]}
 
@@ -190,10 +189,19 @@ def rank_nw_and_pair(m, reads, lens, refs, L):
             kernel_launches())
 
 
-def rank_cli(m, argv):
+def rank_cli(m, argv, trace: bool = False):
     """The port's CLI on this rank of `m`: (exit code, this process's
-    kernel launches)."""
+    kernel launches, its largest launch of each kernel, and with `trace`
+    the linear-ALT typer's trace of the run (``LinearALTsTyper.trace``)
+    or else None)."""
     from .. import cli
+    from ..bench_common import largest_launches
+    from ..models.linear_alts import LinearALTsTyper
     from ..models.parallel_host import kernel_launches
-    rc = cli.main(list(argv), mesh=m)
-    return rc, kernel_launches()
+    if trace:
+        LinearALTsTyper.trace = []
+    try:
+        rc = cli.main(list(argv), mesh=m)
+    finally:
+        got, LinearALTsTyper.trace = LinearALTsTyper.trace, None
+    return rc, kernel_launches(), largest_launches(), got

@@ -106,6 +106,16 @@ class Mesh:
                     self.rank, 0, self.device, None, dist.group.WORLD,
                     self.host_collectives)
 
+    def pair_share(self, C: int, R: int) -> tuple[tuple[int, int],
+                                                 tuple[int, int]]:
+        """This rank's share of a C x C pair reduction over R reads: its
+        range of K3's tile list as (first, count), by its "model" index,
+        and its reads as [lo, hi), by its "data" index."""
+        t_lo, t_hi = _share(pair_tiles(C), self.model_index,
+                            self.shape["model"])
+        return (t_lo, t_hi - t_lo), _share(R, self.data_index,
+                                           self.shape["data"])
+
     def all_gather(self, t: torch.Tensor, group) -> torch.Tensor:
         """Every rank's `t` (equal shapes) of `group`, joined along the
         first axis in rank order; on the host under gloo.  `group` None:
@@ -191,9 +201,9 @@ def _pair_from_ll(mesh: Mesh, ll: torch.Tensor,
     and the per-read constant once per data index, summed over all ranks in
     float64."""
     C = ll.shape[0]
-    t_lo, t_hi = _share(pair_tiles(C), mesh.model_index, mesh.shape["model"])
+    tiles, _ = mesh.pair_share(C, 0)
     if ll.shape[1]:
-        acc, rpad = _pair_ll_diff(ll.contiguous(), (t_lo, t_hi - t_lo))
+        acc, rpad = _pair_ll_diff(ll.contiguous(), tiles)
         part = acc.to(torch.float64)
     else:
         part, rpad = torch.zeros((C, C), dtype=torch.float64), 0
@@ -319,7 +329,7 @@ def pair_ll_reduction_sharded(L: np.ndarray, mesh: Mesh) -> np.ndarray:
     0.5*|a-b| + log1p(exp(-|a-b|)) in f32; zero-padded reads contribute
     log(2) each, cancelled by LOG_HALF per padded read over the SUM of the
     ranks' padded counts."""
-    lo, hi = _share(L.shape[1], mesh.data_index, mesh.shape["data"])
+    _, (lo, hi) = mesh.pair_share(*L.shape)
     ll = to_device(np.ascontiguousarray(L[:, lo:hi], dtype=np.float32),
                    mesh.device)
     rowsum = torch.from_numpy(L[:, lo:hi].astype(np.float64).sum(axis=1))

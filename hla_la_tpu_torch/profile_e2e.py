@@ -9,6 +9,10 @@ profiled run's wall time, the device time summed over every device event
 (kernels, copies, memsets), the busy share (device time / wall; the port
 launches on one stream, so events do not overlap), and the device time and
 count per event name; writes the Chrome trace to ``--trace``.
+
+torch is imported inside the functions: a ``--maxThreads`` run's workers
+re-import this module as their main module, and stay host-only only if it
+imports no torch.
 """
 
 from __future__ import annotations
@@ -17,10 +21,6 @@ import argparse
 import sys
 import time
 
-import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
-
 from .cli import main as cli_main
 
 
@@ -28,6 +28,7 @@ def device_summary(prof) -> list[tuple[str, float, int]]:
     """(name, device ms, count) per device event name (kernels, copies,
     memsets), largest first.  Host ops such as aten::copy_ are left out:
     their device time is that of the events they launched."""
+    from torch.autograd import DeviceType
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
@@ -35,6 +36,9 @@ def device_summary(prof) -> list[tuple[str, float, int]]:
 
 
 def main(argv=None) -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     argv = list(sys.argv[1:] if argv is None else argv)
     cut = argv.index("--") if "--" in argv else len(argv)
     ap = argparse.ArgumentParser(prog="hla_la_tpu_torch.profile_e2e")

@@ -227,17 +227,45 @@ def test_validate_selects_cohort_rows_by_host(capsys, tmp_path, cohort,
                              % (sample == "S2"))
 
 
+@pytest.fixture(scope="module")
+def validate_one_process(tmp_path_factory, cohort):
+    """The port's validate without --maxThreads or --sharded: (printed
+    lines, working directory)."""
+    work = str(tmp_path_factory.mktemp("validate_one"))
+    assert port_main(["--action", "validate", *cohort.cli_args(),
+                      "--workingDir", work, "--device", "cpu"]) == 0
+    return work
+
+
 @pytest.mark.parametrize("flag", [["--maxThreads", "2"],
                                   ["--maxThreads", "2", "--sharded", "2"]])
-def test_validate_refuses_the_hla_actions_process_options(tmp_path, cohort,
-                                                          flag):
-    """--maxThreads, alone or beside --sharded (which validate takes: its
-    test is in test_torch_parallel), is refused before anything is typed."""
-    with pytest.raises(SystemExit) as exc:
-        port_main(["--action", "validate", *cohort.cli_args(),
-                   "--workingDir", str(tmp_path), "--device", "cpu", *flag])
-    assert "--action HLA options" in str(exc.value.code)
-    assert not os.path.exists(tmp_path / "validation")
+def test_validate_refuses_the_hla_actions_process_options(
+        capfd, tmp_path, cohort, validate_one_process, flag):
+    """The parity test of validate's --maxThreads, under its old name (the
+    port refused the flag; the reference takes it and types each sample in
+    one process): alone or beside --sharded 2 (two ranks), it is taken, one
+    log line says it starts no workers, and the printed cohort accuracy and
+    every file are those of the run without it and of the reference CLI
+    given the same flags (--sharded 2 is its --backend sharded)."""
+    ref_flag = ["--maxThreads", "2"] + (
+        ["--backend", "sharded"] if "--sharded" in flag else [])
+    runs = {}
+    for tag, main, extra in (("port", port_main, ["--device", "cpu", *flag]),
+                             ("ref", ref_main, ref_flag)):
+        work = str(tmp_path / tag)
+        capfd.readouterr()
+        assert main(["--action", "validate", *cohort.cli_args(),
+                     "--workingDir", work, *extra]) == 0, tag
+        out = capfd.readouterr()
+        runs[tag] = out.out.splitlines(), out.err, work
+    lines, log, work = runs["port"]
+    assert lines == runs["ref"][0] == [
+        "cohort accuracy: 87.50% over 2 samples (1 discordant calls)"]
+    assert log.count("--action validate types each sample in one process: "
+                     "--maxThreads 2 starts no workers") == 1
+    assert "aligning with" not in log
+    assert _same_trees(work, validate_one_process) >= 20
+    assert _same_trees(work, runs["ref"][2]) >= 20
 
 
 @pytest.mark.parametrize("input_kind", ["bam", "cram"])

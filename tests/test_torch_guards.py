@@ -96,14 +96,16 @@ def test_graft_entry_runs_with_jax_and_the_jax_package_blocked():
 
 def test_the_worker_path_imports_no_torch():
     """What a host-only worker imports (the CLI, which ``python -m
-    hla_la_tpu_torch`` re-imports in every spawned worker, the pool's
-    initializer and the typing worker) imports with torch blocked: those
-    modules name torch through ``_lazy.py`` and read it only on the device
-    path."""
+    hla_la_tpu_torch`` re-imports in every spawned worker, as ``python -m
+    hla_la_tpu_torch.profile_e2e`` re-imports the profiler's module, the
+    pool's initializer and the typing worker) imports with torch blocked:
+    those modules name torch through ``_lazy.py`` and read it only on the
+    device path."""
     code = textwrap.dedent("""
         import sys
         sys.modules["torch"] = None
         import hla_la_tpu_torch.__main__
+        import hla_la_tpu_torch.profile_e2e
         from hla_la_tpu_torch.models import device_server, parallel_host
         from hla_la_tpu_torch.models.typer import _typing_worker
         assert not device_server.torch_imported()
@@ -477,8 +479,9 @@ REWRITTEN_UNITS = {
     # the device seam: the two places that score through the NW forward
     "models/asm": {"AssemblyTyper.__init__", "AssemblyTyper._exon_distances",
                    "AssemblyTyper._verify_located_candidate"},
-    # the device seam of every action that aligns or types, and the
-    # refusal of the HLA action's process options in validate
+    # the device seam of every action that aligns or types, the rank
+    # starts of the actions that take --sharded, and validate's log of the
+    # --maxThreads it does not use
     "cli": {"_regions_from_spec", "_require_graph", "_split_long_reads",
             "action_hla", "main", "action_asm", "action_kir",
             "action_kir_simulation", "action_build_kir_panel",

@@ -733,23 +733,30 @@ def test_cli_merge_refuses_an_incomplete_shard_set(cli_world, tmp_path):
 
 @needs_spawn
 @needs_8
-def test_cli_sharded_switch_matches_one_process_and_the_reference(cli_world):
-    """--sharded 4 (four gloo ranks: NW batches split over all of them, the
-    pair reduction over the 2 x 2 mesh derived from their count, rank 0
-    writing):
+def test_cli_sharded_switch_matches_one_process_and_the_reference(cli_world,
+                                                                 capfd):
+    """--sharded 4 --maxThreads 2 (four gloo ranks: NW batches split over
+    all of them, the pair reduction over the 2 x 2 mesh derived from their
+    count, rank 0 writing; the ranks are the processes, so each logs that
+    --maxThreads starts no workers, where the reference starts its pool):
     every file byte-equal to the one-process run except the pair-posterior
     dumps, which hold the one-process values within the reduction's
     tolerance; and equal in the same sense to the reference's --backend
-    sharded."""
+    sharded --maxThreads 2."""
     root, _, common, single = cli_world
     out = str(root / "sharded")
+    capfd.readouterr()
     assert port_main(common + ["--device", "cpu", "--outputDirectory", out,
-                               "--sharded", "4"]) == 0
+                               "--sharded", "4", "--maxThreads", "2"]) == 0
+    log = capfd.readouterr().err
+    assert log.count("sharded run: the ranks are the processes; maxThreads "
+                     "2 starts no workers") == 4
+    assert "aligning with" not in log
     _assert_runs_match(out, single)
     _assert_same_files(out, single, skip=("hla/R1_PP_",))
     ref_out = str(root / "ref_sharded")
     assert ref_main(common + ["--outputDirectory", ref_out, "--backend",
-                              "sharded"]) == 0
+                              "sharded", "--maxThreads", "2"]) == 0
     _assert_runs_match(out, ref_out)
 
 
