@@ -209,16 +209,34 @@ and (t) run before (e), while the IMGT-scale world is still being built;
   (ag) ``--action KIRsimulation --backend sharded`` (one rank on the card,
       through the --backend translation) on the small KIR world of (m) and
       ``--action TestHLATyping --sharded 2``: the planted calls, printed as
-      the one-process runs print them, K1 and K3 launched on every rank.
+      the one-process runs print them, K1 and K3 launched on every rank;
+  (ah) ``--action HLA --sharded 2 --maxThreads 4`` on the world of (e):
+      one pool of 4 host-only workers, in rank 0, whose NW calls rank 0's
+      device server runs (K1 launched for them), the alignments handed to
+      rank 1 (bytes and seconds printed), every NW job on the card, no
+      worker with torch imported, nvidia-smi listing the two ranks'
+      contexts and no other while the run is up; the calls of (p)'s
+      ``--maxThreads 4`` run with Q1/Q2 within 1e-3 and the pair dumps
+      within rtol 1e-6 / atol 1e-2 (below the typing workers' gate both
+      ranks run the sharded typer), then ``--sharded 2`` without workers
+      on the same world for its align phase; then on the small world of (f)
+      the typing workers' gate lowered on 2 ranks
+      (``launch.rank_hla_typing``): rank 0 types in its pool, K3 launched by
+      its device server for the workers, rank 1 runs no typer, every file
+      byte-equal to (p)'s typing-workers run; then the long reads of (i)
+      on 2 ranks with the pool's read threshold lowered to their count:
+      rank 0's 4 workers align them, K2 launched for them by its device
+      server, rank 1 takes the unpaired chains and both type them in the
+      sharded typer, held to (i)'s cuda run as above.
   The three real-scale worlds and tpu_e2e.py's world are built in
   processes of their own from the start, beside the others (the four-locus
   world and the long reads of (aa) once the world of (e) is there), and
-  (u)-(ag) run last, (ab) before (aa).
+  (u)-(ah) run last, (ab) before (aa).
 
 The last two lines are the card's name and power limit, and
 {"ok": true, "device": {...}}; the line before them is the kernels' JSON
-record, one entry per kernel and main path (K1 runs on fourteen, K2 on
-five, K3 on seventeen; a path of (z)-(af) also says where its launches
+record, one entry per kernel and main path (K1 runs on fifteen, K2 on
+five, K3 on eighteen; a path of (z)-(ah) also says where its launches
 ran),
 with the launches of that path's run and the kernel's time beside its
 bound: the larger of its bytes (inputs read once, outputs written once) over
@@ -1192,6 +1210,11 @@ def kernel_records() -> dict:
     workers = "short reads in 4 worker processes, phase (p)"
     typing_workers = "typing workers, small world, phase (p)"
     ranks = "short reads on 4 ranks (--sharded 4), phase (q)"
+    ranks_pool = "short reads on 2 ranks, rank 0's pool of 4 workers " \
+        "(--sharded 2 --maxThreads 4), phase (ah)"
+    ranks_fan_out = "typing fan-out in rank 0 of 2, small world, phase (ah)"
+    ranks_long_pool = "long reads on 2 ranks, rank 0's pool of 4 workers, " \
+        "small long-read world, phase (ah)"
     served_align = "parent, for the host-only align workers"
     served_typing = "parent, for the host-only typing workers"
     return {"nw": nw, "pair": pair, "nw_long": nw_long,
@@ -1228,7 +1251,16 @@ def kernel_records() -> dict:
             "pair_soak": {**pair, "path": soak, "ran_in": "parent"},
             "nw_kir_ranks": {**nw, "path": kir_ranks, "ran_in": "2 ranks"},
             "pair_kir_ranks": {**pair, "path": kir_ranks,
-                               "ran_in": "2 ranks"}}
+                               "ran_in": "2 ranks"},
+            "nw_ranks_pool": {**nw, "path": ranks_pool,
+                              "ran_in": "rank 0, for the host-only align "
+                                        "workers"},
+            "pair_ranks_fan_out": {**pair, "path": ranks_fan_out,
+                                   "ran_in": "rank 0, for the host-only "
+                                             "typing workers"},
+            "nw_long_ranks_pool": {**nw_long, "path": ranks_long_pool,
+                                   "ran_in": "rank 0, for the host-only "
+                                             "align workers"}}
 
 
 def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> dict:
@@ -1272,8 +1304,9 @@ def hla_phases(nw: dict, pair: dict, nw_long: dict, pair_long: dict) -> dict:
     sync()
 
     phase("(i) small long-read world: the port's CLI on cuda vs on the CPU")
-    compare_devices(long_read_world(WORLD_DIR, **SMALL_LONG_WORLD),
-                    "small long-read", exact=True)
+    small_long = long_read_world(WORLD_DIR, **SMALL_LONG_WORLD)
+    one_process["small_long"] = (small_long, compare_devices(
+        small_long, "small long-read", exact=True)["cuda"])
     sync()
 
     phase("(t) every action new to the port, small world: cuda vs the CPU")
@@ -1920,9 +1953,11 @@ def check_sharded_cli(world, one: dict, n_ranks: int, tag: str) -> dict:
     return launches[0]
 
 
-def worker_phases(one_process: dict, rec: dict) -> None:
+def worker_phases(one_process: dict, rec: dict) -> dict:
     """Phase (p): worker processes and align shards on the one card,
-    against the one-process run of (e)."""
+    against the one-process run of (e).  Returns the --maxThreads 4 run
+    ("workers") and the directory of the small world's typing-workers run
+    ("typing_workers")."""
     from hla_la_tpu_torch.bench_common import logged
     from hla_la_tpu_torch.cli import main as port_main
     from hla_la_tpu_torch.graph.package import GraphPackage
@@ -2059,6 +2094,7 @@ def worker_phases(one_process: dict, rec: dict) -> None:
           f"one-process run; align shards {walls[0]:.3f} and {walls[1]:.3f} "
           f"s, merge and typing {walls[2]:.3f} s")
     sync()
+    return {"workers": res, "typing_workers": out_dir}
 
 
 def sharded_phases(one_process: dict, rec: dict) -> None:
@@ -2606,6 +2642,215 @@ def sharded_action_phases(kir_one: dict, rec: dict) -> None:
     print(f"(ag) took {time.perf_counter() - t0:.1f} s")
 
 
+def handover_lines(log: str) -> dict:
+    """What a --sharded run with workers logs of its hand-overs (each rank
+    0's bytes and seconds to send, each other rank's wait and read) and of
+    each rank's alignment phase (seconds, in log order)."""
+    return {
+        "sent": [(what, int(n), float(s_)) for what, n, s_ in re.findall(
+            r"rank 0 handed over (.*?): (\d+) bytes sent in ([0-9.]+) s",
+            log)],
+        "taken": [(int(r), what, int(n), float(w), float(s_))
+                  for r, what, n, w, s_ in re.findall(
+                      r"rank (\d+) took (.*?) from rank 0: (\d+) bytes after "
+                      r"waiting ([0-9.]+) s, read in ([0-9.]+) s", log)],
+        "align_s": [float(x) for x in re.findall(
+            r"aligned \d+/\d+ pairs \+ \d+/\d+ unpaired in ([0-9.]+) s",
+            log)]}
+
+
+def sharded_worker_phases(one_process: dict, workers: dict,
+                          rec: dict) -> None:
+    """Phase (ah): --sharded 2 --maxThreads 4, one pool of four host-only
+    workers in rank 0 whose alignments rank 0 hands to rank 1, on the world
+    of (e) against (p)'s --maxThreads 4 run; then the typing workers' gate
+    lowered on the small world of (f): rank 0 types in its pool, against
+    (p)'s typing-workers run; then (i)'s long reads aligned in rank 0's
+    pool and typed on both ranks, against (i)'s cuda run."""
+    from hla_la_tpu_torch.bench_common import worker_lines
+    from hla_la_tpu_torch.parallel import launch
+    from hla_la_tpu_torch.utils.config import RunConfig, TyperConfig
+
+    world, _ = one_process["imgt"]
+    small, small_one = one_process["small"]
+    one = workers["workers"]
+    phase("(ah) --sharded 2 --maxThreads 4 on the world of (e): one pool of "
+          "4 host-only workers in rank 0; the typing fan-out in rank 0 on "
+          "the small world; long reads through rank 0's pool on (i)'s world")
+    t0 = time.perf_counter()
+    tag = "--sharded 2 --maxThreads 4"
+    out_dir = os.path.join(WORLD_DIR, "runs", "sharded_workers")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    # nvidia-smi's compute apps while the ranks and the pool are up: the
+    # two ranks' contexts, and none of a worker (counted: the card host
+    # lists every process of this machine under one pid)
+    with compute_apps_watch() as apps:
+        t1 = time.perf_counter()
+        _, log = run_subprocess_cli(
+            ["--action", "HLA", *world.cli_args(), "--graph", world.graph,
+             "--sampleID", "S1", "--outputDirectory", out_dir, "--device",
+             "cuda", "--sharded", "2", "--maxThreads", "4"], tag)
+        wall = time.perf_counter() - t1
+    n = same_outputs(out_dir, one["dir"], tag)
+    got = {"dir": out_dir, "bestguess": read_table(
+        os.path.join(out_dir, "hla", "R1_bestguess.txt"))}
+    q_err = check_same_run(got, one)
+    jobs = [int(x) for x in re.findall(r"n_chain_extensions: (\d+)", log)]
+    on_card = [int(x) for x in re.findall(r"nw_jobs_on_cuda: (\d+)", log)]
+    if len(jobs) != 2 or jobs != on_card or max(jobs) != one["nw_jobs"]:
+        fail(f"{tag}: NW jobs per rank {jobs}, on the card {on_card}, "
+             f"(p)'s run {one['nw_jobs']}")
+    res = {**worker_lines(log), "nw_jobs": max(jobs), "served_launches": {
+        k: int(x) for k, x in re.findall(r"served_launches_(K\d): (\d+)",
+                                         log)}}
+    check_host_only(res, 4, "K1", tag)
+    launches = rank_launches(log)
+    pools = log.count("aligning with 4 worker processes on cuda")
+    hand = handover_lines(log)
+    if len(launches) != 2 or any(lc["K1"] <= 0 or lc["K3"] <= 0
+                                 for lc in launches) \
+            or launches[0]["K1"] < res["served_launches"]["K1"] or pools != 1 \
+            or [w[0] for w in hand["sent"]] != ["the alignments"] \
+            or [t[:2] for t in hand["taken"]] != [(1, "the alignments")]:
+        fail(f"{tag}: launches per rank {launches}, served "
+             f"{res['served_launches']}, {pools} pools, hand-overs {hand}")
+    if apps["most"] != len(apps["before"]) + 2:
+        fail(f"{tag}: nvidia-smi listed at most {apps['most']} contexts, "
+             f"{len(apps['before'])} before the run: not the two ranks' "
+             f"beside them")
+    ready = res["workers_ready"]
+    (_, n_bytes, send_s), = hand["sent"]
+    (_, _, _, wait_s, read_s), = hand["taken"]
+    print(f"{tag}: {n} files of (p)'s --maxThreads 4 run (the pair dumps "
+          f"within rtol={PAIR_RTOL} atol={PAIR_ATOL}, max |dQ| {q_err:.3g}); "
+          f"one pool, rank 0's: its 4 workers ready "
+          f"{sorted(r[0] for r in ready)} s after it was made, none with "
+          f"torch imported or CUDA initialised; rank 0's device server ran "
+          f"{res['server']['nw_jobs']} NW jobs in {res['server']['requests']} "
+          f"requests, K1 {res['served_launches']['K1']} times; NW jobs per "
+          f"rank {jobs}, all on the card; launches per rank {launches}; the "
+          f"alignments handed over: {n_bytes} bytes, sent in {send_s:.3f} "
+          f"s, rank 1 waited {wait_s:.3f} s and read them in {read_s:.3f} s; "
+          f"align phases (log order) {hand['align_s']} s against (p)'s "
+          f"{one['align_s']:.3f} s; nvidia-smi: {apps['before']} before, at "
+          f"most {apps['most']} contexts (pids {sorted(apps['during'])}) in "
+          f"{apps['polls']} polls; whole CLI with the ranks' start "
+          f"{wall:.3f} s ((p) {one['wall_s']:.3f} s)")
+    rec["nw_ranks_pool"]["launches"] = res["served_launches"]["K1"]
+    check_nw(round(res["served_nw_jobs"] / res["served_launches"]["K1"]),
+             101, 32, rec["nw_ranks_pool"])
+
+    # the same ranks without workers: each aligns every read itself, and
+    # both runs' sharded typers reduce the same alignments alike
+    pooled_dir = out_dir
+    out_dir = os.path.join(WORLD_DIR, "runs", "sharded_2")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t1 = time.perf_counter()
+    _, log = run_subprocess_cli(
+        ["--action", "HLA", *world.cli_args(), "--graph", world.graph,
+         "--sampleID", "S1", "--outputDirectory", out_dir, "--device",
+         "cuda", "--sharded", "2"], "--sharded 2")
+    bare_wall = time.perf_counter() - t1
+    n = same_files(out_dir, pooled_dir, "--sharded 2")
+    jobs = re.findall(r"n_chain_extensions: (\d+)", log)
+    if jobs != re.findall(r"nw_jobs_on_cuda: (\d+)", log) or len(jobs) != 2:
+        fail(f"--sharded 2: NW jobs per rank {jobs}, not all on the card")
+    print(f"--sharded 2 without workers: {n} files byte-equal to those of "
+          f"the run with rank 0's pool; align phases "
+          f"{handover_lines(log)['align_s']} s "
+          f"against {hand['align_s']} s with rank 0's pool and "
+          f"{one['align_s']:.3f} s in (p)'s one process; launches per rank "
+          f"{rank_launches(log)}; whole CLI {bare_wall:.3f} s against "
+          f"{wall:.3f} s")
+
+    # the typing workers' gate lowered (the small world's two loci and few
+    # reads are under the default), as (p) ran it in one process
+    tag = "--sharded 2, typing fan-out in rank 0"
+    out_dir = os.path.join(WORLD_DIR, "runs", "sharded_typing_workers")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = RunConfig(max_threads=4, typer=TyperConfig(
+        min_reads_for_typing_workers=1, min_loci_for_typing_workers=2))
+    log = io.StringIO()
+    t1 = time.perf_counter()
+    with captured_stderr(log):
+        ranks = launch.run_ranks(launch.rank_hla_typing, 2, "cuda", (
+            small.graph, (small.fastq1, small.fastq2), out_dir, cfg))
+    wall = time.perf_counter() - t1
+    n = same_files(out_dir, workers["typing_workers"], tag)
+    text = log.getvalue()
+    served = [int(x) for x in re.findall(
+        r"of them served for typing workers: K3 (\d+)", text)]
+    (calls0, lc0, _), (calls1, lc1, _) = ranks
+    if calls0 != calls1 or len(served) != 1 or served[0] <= 0 \
+            or lc0["K3"] != served[0] or lc1["K3"] != 0 \
+            or text.count("rank 1: rank 0 types the loci in worker "
+                          "processes") != 1:
+        fail(f"{tag}: calls {calls0} / {calls1}, K3 served {served}, "
+             f"launches per rank {[lc0, lc1]}")
+    print(f"{tag}: {n} files byte-equal to (p)'s typing-workers run; rank 0 "
+          f"typed in its pool, its device server launched K3 {served[0]} "
+          f"times for the workers; rank 1 ran no typer (K3 {lc1['K3']}); "
+          f"launches per rank {[lc0, lc1]}; {wall:.3f} s with the ranks' "
+          f"start")
+    rec["pair_ranks_fan_out"]["launches"] = served[0]
+    C, R = max(small_one["loci"].values(), key=lambda cr: cr[1])
+    check_pair(C, R, rec["pair_ranks_fan_out"])
+    sync()
+
+    # long reads: (i)'s world has too few reads to start a pool, so the
+    # ranks lower the threshold to its count; the typing gate fails and
+    # both ranks type the handed-over chains in the sharded typer; rank 1
+    # aligns nothing (no insert size to estimate), so its statistics hold
+    # no NW job
+    long_world, long_one = one_process["small_long"]
+    tag = "--sharded 2 --maxThreads 4 --longReads ont2d"
+    out_dir = os.path.join(WORLD_DIR, "runs", "sharded_long_workers")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log = io.StringIO()
+    t1 = time.perf_counter()
+    with captured_stderr(log):
+        ranks = launch.run_ranks(launch.rank_hla_typing, 2, "cuda", (
+            long_world.graph, (long_world.fastq,), out_dir,
+            RunConfig(max_threads=4, long_reads="ont2d"), 0))
+    wall = time.perf_counter() - t1
+    n = same_outputs(out_dir, long_one["dir"], tag)
+    text = log.getvalue()
+    (calls0, lc0, big0), (calls1, lc1, _) = ranks
+    jobs = [int(x) for x in re.findall(r"n_chain_extensions: (\d+)", text)]
+    on_card = [int(x) for x in re.findall(r"nw_jobs_on_cuda: (\d+)", text)]
+    res = {**worker_lines(text), "nw_jobs": max(jobs, default=0),
+           "served_launches": {k: int(x) for k, x in re.findall(
+               r"served_launches_(K\d): (\d+)", text)}}
+    check_host_only(res, 4, "K2", tag)
+    hand = handover_lines(text)
+    k2 = res["served_launches"]["K2"]
+    if calls0 != calls1 or sorted(jobs) != [0, long_one["nw_jobs"]] \
+            or on_card != [long_one["nw_jobs"]] \
+            or text.count("aligning with 4 worker processes on cuda") != 1 \
+            or lc0["K2"] != k2 or lc1["K2"] != 0 \
+            or min(lc0["K3"], lc1["K3"]) <= 0 \
+            or [w[0] for w in hand["sent"]] != ["the alignments"] \
+            or [t[:2] for t in hand["taken"]] != [(1, "the alignments")]:
+        fail(f"{tag}: calls {calls0} / {calls1}, NW jobs per rank {jobs}, "
+             f"on the card {on_card}, (i)'s {long_one['nw_jobs']}, launches "
+             f"per rank {[lc0, lc1]}, served K2 {k2}, hand-overs {hand}")
+    (_, n_bytes, send_s), = hand["sent"]
+    (_, _, _, wait_s, read_s), = hand["taken"]
+    print(f"{tag}: {n} files of (i)'s cuda run (the pair dumps within "
+          f"rtol={PAIR_RTOL} atol={PAIR_ATOL}); rank 0's 4 host-only workers "
+          f"aligned {long_one['nw_jobs']} NW jobs, K2 {k2} times by its "
+          f"device server (largest launch {big0.get('K2')}); the chains "
+          f"handed over: {n_bytes} bytes, sent in {send_s:.3f} s, rank 1 "
+          f"waited {wait_s:.3f} s and read them in {read_s:.3f} s; align "
+          f"phases {hand['align_s']} s against (i)'s one process "
+          f"{long_one['align_s']:.3f} s; launches per rank {[lc0, lc1]}; "
+          f"{wall:.3f} s with the ranks' start")
+    rec["nw_long_ranks_pool"]["launches"] = k2
+    check_nw_long(*big0["K2"], rec["nw_long_ranks_pool"])
+    sync()
+    print(f"(ah) took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2644,12 +2889,13 @@ def main() -> int:
                                  rec["nw_asm"])
         cohort_phases(one_process, rec)
         flag_phases()
-        worker_phases(one_process, rec)
+        workers = worker_phases(one_process, rec)
         sharded_phases(one_process, rec)
         real_scale_phases(rec)
         imgt_phases(rec)
         twin_phases(rec)
         sharded_action_phases(kir_one, rec)
+        sharded_worker_phases(one_process, workers, rec)
     finally:
         stop_world_builds()
 

@@ -14,7 +14,9 @@ aligns read slice I of N into a shard file and ``--mergeShards D`` types
 from all of them; ``--sharded N`` (the reference's ``--backend sharded``)
 runs N ranks of a ``torch.distributed`` group on this host, NW batches
 split over all of them and the pair reduction over a reads x clusters mesh
-whose cluster axis follows from N as in the reference.  ``--sharded`` is
+whose cluster axis follows from N as in the reference; with
+``--maxThreads M`` rank 0 alone holds the M workers, as the reference's
+one process does.  ``--sharded`` is
 taken by the actions that take the reference's sharded backend (HLA,
 validate, KIR, KIRsimulation, TestHLATyping); any other action says so and
 runs in one process.  ``--backend auto|numpy|jax|sharded``, as the

@@ -465,7 +465,8 @@ class HLATyper:
         results: list[LocusResult] = []
         hist_path = os.path.join(output_dir, "histogram_matchesPerRead.txt")
         per_locus = None
-        if (n_workers > 1 or worker_pool is not None) and len(self.loci) > 1:
+        if self.fans_out(len(aligned_pairs) + len(aligned_unpaired),
+                         n_workers, worker_pool is not None):
             per_locus = self._type_loci_parallel(
                 raw_pairs, aligned_pairs, raw_unpaired, aligned_unpaired,
                 insert_mean, insert_sd, output_dir, cfg, long_reads,
@@ -580,6 +581,21 @@ class HLATyper:
                                          pr_f1 - pr_l2 - 1)
 
     # ------------------------------------------------------------- per locus
+    def fans_out(self, n_aligned: int, n_workers: int, pooled: bool) -> bool:
+        """Whether type_all types the loci in worker processes, for
+        `n_aligned` aligned pairs and unpaired reads, given a warm pool
+        (`pooled`) or else `n_workers` workers to start (whether they can
+        start, spawn_safe, is asked apart): the one gate of the fan-out, so
+        that every rank of a mesh decides alike from the counts they all
+        hold.  Per-worker fixed
+        costs (HLATyper init, kmer-index IPC; plus a package reload for
+        fresh workers) only amortise at WGS scale (~1M MHC reads / several
+        loci) — below that serial typing wins."""
+        min_reads = getattr(self.cfg, "min_reads_for_typing_workers", 50_000)
+        min_loci = getattr(self.cfg, "min_loci_for_typing_workers", 4)
+        return ((n_workers > 1 or pooled) and n_aligned >= min_reads
+                and len(self.loci) >= max(2, min_loci))
+
     def _type_loci_parallel(self, raw_pairs, aligned_pairs, raw_unpaired,
                             aligned_unpaired, insert_mean, insert_sd,
                             output_dir, cfg, long_reads, kmer_counts,
@@ -593,20 +609,12 @@ class HLATyper:
         workers are host-only: their cluster x read products and pair
         reductions run on this process's device, in the server's thread.
         Returns {locus: (LocusResult|None, hist_text)}, or None when the
-        fan-out is not worth it or cannot start (too few reads or loci, no
-        file-backed __main__): the caller then types serially.  A failure
-        INSIDE a worker or in the server on its behalf (a CUDA error, a
-        failed build or launch) is not such a case: it propagates and ends
-        the run."""
+        fan-out cannot start (no file-backed __main__): the caller then
+        types serially.  Whether it is worth it is the caller's question
+        (fans_out).  A failure INSIDE a worker or in the server on its
+        behalf (a CUDA error, a failed build or launch) is not such a case:
+        it propagates and ends the run."""
         from .parallel_host import pack_aligned_pairs, spawn_safe
-        # per-worker fixed costs (HLATyper init, kmer-index IPC; plus a
-        # package reload for fresh workers) only amortise at WGS scale
-        # (~1M MHC reads / several loci) — below that serial typing wins
-        min_reads = getattr(self.cfg, "min_reads_for_typing_workers", 50_000)
-        min_loci = getattr(self.cfg, "min_loci_for_typing_workers", 4)
-        if len(aligned_pairs) + len(aligned_unpaired) < min_reads \
-                or len(self.loci) < min_loci:
-            return None
         if worker_pool is None and not spawn_safe():
             return None
         import multiprocessing as mp

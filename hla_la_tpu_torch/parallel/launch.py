@@ -189,6 +189,34 @@ def rank_nw_and_pair(m, reads, lens, refs, L):
             kernel_launches())
 
 
+def rank_hla_typing(m, graph, fastqs, out_dir, cfg,
+                    min_reads_for_workers=None):
+    """run_hla_typing on this rank of `m` with `cfg` (its workers, its
+    typer's gate, its long-read mode) of the pairs of `fastqs` = (FASTQ1,
+    FASTQ2), or of its unpaired reads = (FASTQU,); `min_reads_for_workers`
+    sets the pool's read threshold (pipeline.MIN_READS_FOR_WORKERS) on this
+    rank, for a world too small to start the pool.  Returns the calls as
+    (locus, allele 1, allele 2, Q1, Q2), this process's kernel launches and
+    its largest launch of each kernel."""
+    from ..bench_common import largest_launches
+    from ..graph.package import GraphPackage
+    from ..io.fastq import read_fastq
+    from ..models import pipeline
+    from ..models.parallel_host import kernel_launches
+    if min_reads_for_workers is not None:
+        pipeline.MIN_READS_FOR_WORKERS = min_reads_for_workers
+    if len(fastqs) == 2:
+        reads = {"pairs": pipeline.pair_up_fastq(*fastqs)}
+    else:
+        reads = {"unpaired": list(read_fastq(*fastqs))}
+    res = pipeline.run_hla_typing(GraphPackage(graph), **reads,
+                                  output_dir=out_dir, cfg=cfg,
+                                  device=m.device, sharded=m)
+    return ([(r.locus, r.allele1_id, r.allele2_id, r.q1_allele1,
+              r.q1_allele2) for r in res.results], kernel_launches(),
+            largest_launches())
+
+
 def rank_cli(m, argv, trace: bool = False):
     """The port's CLI on this rank of `m`: (exit code, this process's
     kernel launches, its largest launch of each kernel, and with `trace`

@@ -43,6 +43,8 @@ the host).
 from __future__ import annotations
 
 import datetime
+import pickle
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -52,8 +54,14 @@ import torch.distributed as dist
 from ..device import resolve, to_device
 from ..ops.banded_nw import DEFAULT_SCORING, banded_nw_forward_torch
 from ..ops.pair_ll import LOG_HALF, _pair_ll_diff, pair_tiles
+from ..utils.timing import log_progress
 
 RENDEZVOUS_TIMEOUT_S = 300
+# the wait of from_rank0, for rank 0's work however long it takes: no run
+# comes near it, and a rank 0 that fails ends the others (run_ranks)
+HANDOVER_TIMEOUT = datetime.timedelta(days=365)
+# the gloo group of every rank that from_rank0 waits in (init_ranks)
+_handover_group = None
 
 
 def init_ranks(rank: int, world_size: int, init_method: str,
@@ -63,7 +71,9 @@ def init_ranks(rank: int, world_size: int, init_method: str,
     "cuda" a rank takes card rank % device_count; the backend is NCCL when
     every rank has a card of its own, else gloo (NCCL refuses two ranks on
     one card).  "cpu" is gloo.  A rank that does not arrive within
-    `timeout_s` fails the others instead of hanging them."""
+    `timeout_s` fails the others instead of hanging them; the group's
+    collectives have that timeout too, all but from_rank0's."""
+    global _handover_group
     dev = resolve(device)
     backend = "gloo"
     if dev.type == "cuda":
@@ -75,10 +85,14 @@ def init_ranks(rank: int, world_size: int, init_method: str,
     dist.init_process_group(
         backend, init_method=init_method, rank=rank, world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s))
+    _handover_group = dist.new_group(backend="gloo",
+                                     timeout=HANDOVER_TIMEOUT)
     return dev
 
 
 def close_ranks() -> None:
+    global _handover_group
+    _handover_group = None
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -167,6 +181,40 @@ def make_mesh(n_data: int, n_model: int = 1, *,
     nccl = dist.get_backend() == "nccl"
     return Mesh({"data": n_data, "model": n_model}, rank, d_i, m_i,
                 resolve(device), model_group, data_group, not nccl)
+
+
+def from_rank0(mesh: Mesh, value, what: str):
+    """Rank 0's `value` on every rank (the others pass None), named `what`
+    in the log.  It is pickled and broadcast in the gloo group that
+    init_ranks made with no timeout a run reaches, so rank 0 may take as
+    long as it needs to make it, where a rank waiting in one of the mesh's
+    collectives fails after the group's timeout.  A rank 0 that fails
+    instead ends the waiting ranks (run_ranks).  Every rank calls this at
+    the same point of its run; gloo's broadcast returns on the host, with
+    the value received."""
+    if _handover_group is None:
+        raise RuntimeError("from_rank0 needs the ranks' process group "
+                           "(parallel.mesh.init_ranks)")
+    t0 = time.perf_counter()
+    size = torch.zeros(1, dtype=torch.int64)
+    if mesh.rank == 0:
+        buf = torch.frombuffer(bytearray(pickle.dumps(
+            value, protocol=pickle.HIGHEST_PROTOCOL)), dtype=torch.uint8)
+        size[0] = buf.numel()
+    dist.broadcast(size, 0, group=_handover_group)
+    waited = time.perf_counter() - t0
+    if mesh.rank != 0:
+        buf = torch.empty(int(size[0]), dtype=torch.uint8)
+    dist.broadcast(buf, 0, group=_handover_group)
+    if mesh.rank == 0:
+        log_progress(f"rank 0 handed over {what}: {buf.numel()} bytes "
+                     f"sent in {time.perf_counter() - t0:.3f} s")
+    else:
+        value = pickle.loads(buf.numpy().tobytes())
+        log_progress(f"rank {mesh.rank} took {what} from rank 0: "
+                     f"{buf.numel()} bytes after waiting {waited:.3f} s, "
+                     f"read in {time.perf_counter() - t0 - waited:.3f} s")
+    return value
 
 
 def _share(n: int, i: int, parts: int) -> tuple[int, int]:

@@ -443,18 +443,19 @@ REWRITTEN_UNITS = {
         "ReadAligner.__init__", "ReadAligner._run_nw",
         "ReadAligner._jobs_to_alignments", "ReadAligner._align_jobs_arrays",
         "ReadAligner._align_jobs_soa", "ReadAligner._align_core_raw"},
-    # type_all is the reference's text again (n_workers, worker_pool); the
-    # fan-out differs where a worker's failure must end the run, where the
-    # host-only workers' device calls go to a device server, where the K3
-    # launches made for them come back, and where unpaired chains are
-    # packed without their quality caches
+    # type_all asks the fan-out's gate, HLATyper.fans_out (a method of the
+    # port alone, which the ranks of a mesh also ask); the fan-out differs
+    # where a worker's failure must end the run, where the host-only
+    # workers' device calls go to a device server, where the K3 launches
+    # made for them come back, and where unpaired chains are packed
+    # without their quality caches
     "models/typer": {
         "HLATyper.__init__", "HLATyper._type_locus",
         "HLATyper._setup_pair_ranges", "HLATyper._collect_locus_obs",
         "HLATyper._column_qc", "HLATyper._write_pileup",
         "HLATyper._write_summary_statistics", "KmerCountIndex.build",
-        "HLATyper._type_loci_parallel", "_typing_worker",
-        "_typing_worker_init", "_pack_optional_chains"},
+        "HLATyper.type_all", "HLATyper._type_loci_parallel",
+        "_typing_worker", "_typing_worker_init", "_pack_optional_chains"},
     # the device and mesh seams; _align_all, _shard_path and
     # _write_reads_per_level are the reference's text
     "models/pipeline": {"run_hla_typing", "_type_and_write", "align_shard",

@@ -735,23 +735,31 @@ def test_cli_merge_refuses_an_incomplete_shard_set(cli_world, tmp_path):
 @needs_8
 def test_cli_sharded_switch_matches_one_process_and_the_reference(cli_world,
                                                                  capfd):
-    """--sharded 4 --maxThreads 2 (four gloo ranks: NW batches split over
-    all of them, the pair reduction over the 2 x 2 mesh derived from their
-    count, rank 0 writing; the ranks are the processes, so each logs that
-    --maxThreads starts no workers, where the reference starts its pool):
-    every file byte-equal to the one-process run except the pair-posterior
-    dumps, which hold the one-process values within the reduction's
-    tolerance; and equal in the same sense to the reference's --backend
-    sharded --maxThreads 2."""
+    """--sharded 4 --maxThreads 2 (four gloo ranks: rank 0 aligns in its
+    pool of two workers, as the reference's one process does, and hands
+    the alignments to the others; the typing workers' gate fails, so the
+    pair reduction runs over the 2 x 2 mesh derived from their count, rank
+    0 writing): every file byte-equal to the one-process run except the
+    pair-posterior dumps, which hold the one-process values within the
+    reduction's tolerance; and equal in the same sense to the reference's
+    --backend sharded --maxThreads 2."""
     root, _, common, single = cli_world
     out = str(root / "sharded")
     capfd.readouterr()
     assert port_main(common + ["--device", "cpu", "--outputDirectory", out,
                                "--sharded", "4", "--maxThreads", "2"]) == 0
     log = capfd.readouterr().err
-    assert log.count("sharded run: the ranks are the processes; maxThreads "
-                     "2 starts no workers") == 4
-    assert "aligning with" not in log
+    # one pool, rank 0's, whose workers' counters are in rank 0's
+    # statistics alone: its NW jobs, every one served
+    assert log.count("aligning with 2 worker processes on cpu") == 1
+    assert log.count("rank 0 handed over the alignments") == 1
+    assert len(re.findall(r"rank [123] took the alignments from rank 0",
+                          log)) == 3
+    served = re.search(r"device server on cpu: \d+ requests from [12] "
+                       r"workers, (\d+) NW jobs", log)
+    workers_jobs = re.findall(r"served_nw_jobs: (\d+)", log)
+    assert served and len(workers_jobs) == 1
+    assert int(workers_jobs[0]) == int(served.group(1)) > 0
     _assert_runs_match(out, single)
     _assert_same_files(out, single, skip=("hla/R1_PP_",))
     ref_out = str(root / "ref_sharded")
