@@ -75,7 +75,7 @@ from .models.pipeline import (align_shard, merge_shards_and_type,
 from .sim.read_sim import ReadSimulator
 from .utils.config import RunConfig, TyperConfig
 from .utils.nomenclature import evaluate_types, read_truth_file
-from .utils.timing import log_progress
+from .utils.timing import log_progress, root
 
 
 def main(argv=None, mesh=None) -> int:
@@ -373,6 +373,8 @@ def action_hla(args) -> int:
     writes = _writes(args)
     if writes:
         os.makedirs(out_dir, exist_ok=True)
+    with root("pkg.load"):
+        pkg.compiled()
 
     if args.mergeShards:
         # multi-host HLA: typing over every host's align shard
@@ -386,7 +388,8 @@ def action_hla(args) -> int:
                      f"{out_dir}/hla/R1_bestguess.txt")
         return 0
 
-    pairs, unpaired = _read_input(args, pkg)
+    with root("io.bam" if args.BAM else "io.fastq"):
+        pairs, unpaired = _read_input(args, pkg)
     if args.keepExtractedFastq and writes:
         # the reference leaves the extraction FASTQs (R_1/R_2/R_U) in the
         # sample working dir (HLA-LA.pl:465-502); extraction here is

@@ -37,7 +37,7 @@ from ..ops.banded_nw import (DEFAULT_SCORING, banded_nw_backtrace,
                              banded_nw_forward_torch)
 from ..sim.read_sim import revcomp
 from ..utils.config import RunConfig
-from ..utils.timing import Stats
+from ..utils.timing import Stats, span
 from .alignment import (GraphAlignment, pair_distances_underlying,
                         project_linear_alignment, score_alignment,
                         strands_valid)
@@ -449,11 +449,13 @@ class ReadAligner:
             if raw["ops"] is None:
                 return None
             # (n_chain_extensions bumped inside _align_core_raw)
-            res = project_batch_raw(
-                raw["ops"], raw["n_ops"], raw["job_seq"], raw["win_start"],
-                raw["reads_ascii"], raw["quals_ascii"],
-                self.hap_codes_cat, self.hap_levels_cat, self.hap_offsets,
-                self.hap_lens, raw["reverse"], self.long_reads)
+            with span("align.select"):
+                res = project_batch_raw(
+                    raw["ops"], raw["n_ops"], raw["job_seq"],
+                    raw["win_start"], raw["reads_ascii"], raw["quals_ascii"],
+                    self.hap_codes_cat, self.hap_levels_cat,
+                    self.hap_offsets, self.hap_lens, raw["reverse"],
+                    self.long_reads)
             if res is None:
                 return None
             (levels, graph_c, seq_c, qual_c, pos_keys, col_counts,
@@ -512,77 +514,79 @@ class ReadAligner:
         Returns a dict of per-job arrays feeding the projection step, or
         None when the native backtrace is unavailable (callers fall back
         to the per-job python loop)."""
-        nb = len(job_row)
-        L = max(len(s) for s, _ in uniq)
-        W = self.band
-        B = nb
-        # staging buffers come from the aligner's scratch pool (no fresh
-        # multi-MB allocations per chunk); every buffer is re-filled below
-        # and fully consumed before the next batch
-        def stage(name, shape, dtype, fill, crosses=False):
-            v = self._host_buffer(name, shape, dtype, crosses)
-            v.fill(fill)
-            return v
+        with span("align.nw", jobs=len(job_row)):
+            nb = len(job_row)
+            L = max(len(s) for s, _ in uniq)
+            W = self.band
+            B = nb
+            # staging buffers come from the aligner's scratch pool (no fresh
+            # multi-MB allocations per chunk); every buffer is re-filled below
+            # and fully consumed before the next batch
+            def stage(name, shape, dtype, fill, crosses=False):
+                v = self._host_buffer(name, shape, dtype, crosses)
+                v.fill(fill)
+                return v
 
-        # the three inputs of the forward pass go to the device
-        reads_arr = stage("st_reads", (B, L), np.uint8, 4, crosses=True)
-        reads_ascii = stage("st_rascii", (B, L), np.uint8, 0)
-        quals_ascii = stage("st_qascii", (B, L), np.uint8, 0)
-        lens_arr = stage("st_lens", (B,), np.int64, 0, crosses=True)
-        refs_arr = stage("st_refs", (B, L + W), np.uint8, 4, crosses=True)
-        job_seq = stage("st_jseq", (B,), np.int64, 0)
-        win_start = stage("st_wstart", (B,), np.int64, 0)
-        reverse_arr = stage("st_rev", (B,), bool, 0)
-        prg_id_arr = stage("st_prg", (B,), np.int64, 0)
-        Rn = len(uniq)
-        # vectorised stacking: one big encode + one scatter (no python loop
-        # over the ~10k unique reads of a batch)
-        lens_u = np.asarray([len(s) for s, _ in uniq], dtype=np.int64)
-        cat_seq = np.frombuffer(
-            "".join(s for s, _ in uniq).encode("latin-1", "replace"),
-            dtype=np.uint8)
-        cat_qual = np.frombuffer(
-            "".join(q for _, q in uniq).encode("latin-1", "replace"),
-            dtype=np.uint8)
-        offs = np.concatenate([[0], np.cumsum(lens_u)])
-        rows = np.repeat(np.arange(Rn), lens_u)
-        cols = np.arange(len(cat_seq)) - offs[rows]
-        ascii_u = stage("st_ascii_u", (Rn, L), np.uint8, 0)
-        qual_u = stage("st_qual_u", (Rn, L), np.uint8, 0)
-        ascii_u[rows, cols] = cat_seq
-        qual_u[rows, cols] = cat_qual
-        reads_u = stage("st_reads_u", (Rn, L), np.uint8, 4)
-        reads_u[rows, cols] = _ENC[cat_seq]
-        np.take(reads_u, job_row, axis=0, out=reads_arr[:nb])
-        np.take(ascii_u, job_row, axis=0, out=reads_ascii[:nb])
-        np.take(qual_u, job_row, axis=0, out=quals_ascii[:nb])
-        np.take(lens_u, job_row, out=lens_arr[:nb])
-        job_seq[:nb] = job_seq_in
-        win_start[:nb] = win_start_in
-        reverse_arr[:nb] = reverse_in
-        prg_id_arr[:nb] = np.asarray(self.prg_ids)[job_seq[:nb]]
-        # reference windows
-        if len(self.hap_codes_cat):
-            gather_ref_windows(self.hap_enc_cat, self.hap_offsets,
-                               self.hap_lens, job_seq[:nb], win_start[:nb],
-                               L + W, refs_arr[:nb])
-        scores, end_k, end_state, pointers = self._run_nw(
-            reads_arr, lens_arr, refs_arr)
-        self.stats.n_chain_extensions += nb
+            # the three inputs of the forward pass go to the device
+            reads_arr = stage("st_reads", (B, L), np.uint8, 4, crosses=True)
+            reads_ascii = stage("st_rascii", (B, L), np.uint8, 0)
+            quals_ascii = stage("st_qascii", (B, L), np.uint8, 0)
+            lens_arr = stage("st_lens", (B,), np.int64, 0, crosses=True)
+            refs_arr = stage("st_refs", (B, L + W), np.uint8, 4, crosses=True)
+            job_seq = stage("st_jseq", (B,), np.int64, 0)
+            win_start = stage("st_wstart", (B,), np.int64, 0)
+            reverse_arr = stage("st_rev", (B,), bool, 0)
+            prg_id_arr = stage("st_prg", (B,), np.int64, 0)
+            Rn = len(uniq)
+            # vectorised stacking: one big encode + one scatter (no python loop
+            # over the ~10k unique reads of a batch)
+            lens_u = np.asarray([len(s) for s, _ in uniq], dtype=np.int64)
+            cat_seq = np.frombuffer(
+                "".join(s for s, _ in uniq).encode("latin-1", "replace"),
+                dtype=np.uint8)
+            cat_qual = np.frombuffer(
+                "".join(q for _, q in uniq).encode("latin-1", "replace"),
+                dtype=np.uint8)
+            offs = np.concatenate([[0], np.cumsum(lens_u)])
+            rows = np.repeat(np.arange(Rn), lens_u)
+            cols = np.arange(len(cat_seq)) - offs[rows]
+            ascii_u = stage("st_ascii_u", (Rn, L), np.uint8, 0)
+            qual_u = stage("st_qual_u", (Rn, L), np.uint8, 0)
+            ascii_u[rows, cols] = cat_seq
+            qual_u[rows, cols] = cat_qual
+            reads_u = stage("st_reads_u", (Rn, L), np.uint8, 4)
+            reads_u[rows, cols] = _ENC[cat_seq]
+            np.take(reads_u, job_row, axis=0, out=reads_arr[:nb])
+            np.take(ascii_u, job_row, axis=0, out=reads_ascii[:nb])
+            np.take(qual_u, job_row, axis=0, out=quals_ascii[:nb])
+            np.take(lens_u, job_row, out=lens_arr[:nb])
+            job_seq[:nb] = job_seq_in
+            win_start[:nb] = win_start_in
+            reverse_arr[:nb] = reverse_in
+            prg_id_arr[:nb] = np.asarray(self.prg_ids)[job_seq[:nb]]
+            # reference windows
+            if len(self.hap_codes_cat):
+                gather_ref_windows(self.hap_enc_cat, self.hap_offsets,
+                                   self.hap_lens, job_seq[:nb], win_start[:nb],
+                                   L + W, refs_arr[:nb])
+            scores, end_k, end_state, pointers = self._run_nw(
+                reads_arr, lens_arr, refs_arr)
+            self.stats.n_chain_extensions += nb
 
-        from .. import native
-        native_bt = None
-        if native.available():
-            native_bt = native.nw_backtrace_batch(pointers, lens_arr,
-                                                  end_k, end_state,
-                                                  scratch=self._nw_scratch)
-        if native_bt is None:
-            ops_b = n_ops_b = None
-        else:
-            ops_b, n_ops_b = native_bt
-            n_ops_b = n_ops_b.astype(np.int64).copy()
-            n_ops_b[scores[:B] <= -1e29] = 0
-            ops_b, n_ops_b = ops_b[:nb], n_ops_b[:nb]
+        with span("align.select"):
+            from .. import native
+            native_bt = None
+            if native.available():
+                native_bt = native.nw_backtrace_batch(pointers, lens_arr,
+                                                      end_k, end_state,
+                                                      scratch=self._nw_scratch)
+            if native_bt is None:
+                ops_b = n_ops_b = None
+            else:
+                ops_b, n_ops_b = native_bt
+                n_ops_b = n_ops_b.astype(np.int64).copy()
+                n_ops_b[scores[:B] <= -1e29] = 0
+                ops_b, n_ops_b = ops_b[:nb], n_ops_b[:nb]
         return dict(ops=ops_b, n_ops=n_ops_b,
                     job_seq=job_seq[:nb], win_start=win_start[:nb],
                     reads_ascii=reads_ascii[:nb],
@@ -601,20 +605,21 @@ class ReadAligner:
         its row; the remaining arrays are per job."""
         raw = self._align_core_raw(uniq, job_row, job_seq_in, win_start_in,
                                    reverse_in)
-        ffr_l = ffr_in.tolist()
-        if raw["ops"] is not None:
-            from .alignment import project_and_score_batch
-            out = project_and_score_batch(
-                raw["ops"], raw["n_ops"], raw["job_seq"], raw["win_start"],
-                raw["reads_ascii"], raw["quals_ascii"],
-                self.hap_codes_cat, self.hap_levels_cat, self.hap_offsets,
-                self.hap_lens, raw["reverse"], raw["prg_ids"],
-                self.long_reads)
-            for al, ffr in zip(out, ffr_l):
-                if al is not None:
-                    al.from_first_read = ffr
-            return out
-        return self._align_core_pyloop(raw, ffr_l)
+        with span("align.select"):
+            ffr_l = ffr_in.tolist()
+            if raw["ops"] is not None:
+                from .alignment import project_and_score_batch
+                out = project_and_score_batch(
+                    raw["ops"], raw["n_ops"], raw["job_seq"], raw["win_start"],
+                    raw["reads_ascii"], raw["quals_ascii"],
+                    self.hap_codes_cat, self.hap_levels_cat, self.hap_offsets,
+                    self.hap_lens, raw["reverse"], raw["prg_ids"],
+                    self.long_reads)
+                for al, ffr in zip(out, ffr_l):
+                    if al is not None:
+                        al.from_first_read = ffr
+                return out
+            return self._align_core_pyloop(raw, ffr_l)
 
     def _align_core_pyloop(self, raw: dict, ffr_l: list
                            ) -> list[GraphAlignment | None]:
@@ -668,8 +673,9 @@ class ReadAligner:
                     insert_mean: float, insert_sd: float,
                     truth=None) -> list[AlignedPair]:
         all_reads = [r for p in pairs for r in p]
-        (read_of, seq_idx_a, rev_a, start_a, nk_a, _span_a) = \
-            self.seeder.candidates_batch_arrays([r.seq for r in all_reads])
+        with span("align.seed", reads=len(all_reads)):
+            (read_of, seq_idx_a, rev_a, start_a, nk_a, _span_a) = \
+                self.seeder.candidates_batch_arrays([r.seq for r in all_reads])
         if self.decoy is not None:
             from ..mapping.decoy import filter_decoy_pairs
             prg_best = np.zeros(len(all_reads), dtype=np.int64)
@@ -687,8 +693,9 @@ class ReadAligner:
         soa = self._align_jobs_soa(read_of, seq_idx_a, rev_a, win_start,
                                    all_reads)
         if soa is not None:
-            out = self._align_pairs_soa(pairs, all_reads, read_of, soa,
-                                        insert_mean, insert_sd, truth)
+            with span("align.select"):
+                out = self._align_pairs_soa(pairs, all_reads, read_of, soa,
+                                            insert_mean, insert_sd, truth)
             if out is not None:
                 return out
         alignments = self._align_jobs_arrays(read_of, seq_idx_a, rev_a,
@@ -1130,8 +1137,9 @@ class ReadAligner:
                        ) -> list[GraphAlignment | None]:
         """alignOneLongRead equivalent: no pair model; mapQ from chain-LL
         posteriors (processBAM.cpp:3618-3839)."""
-        (read_of, seq_idx_a, rev_a, start_a, nk_a, _span_a) = \
-            self.seeder.candidates_batch_arrays([r.seq for r in reads])
+        with span("align.seed", reads=len(reads)):
+            (read_of, seq_idx_a, rev_a, start_a, nk_a, _span_a) = \
+                self.seeder.candidates_batch_arrays([r.seq for r in reads])
         if self.decoy is not None:
             dec = self.decoy.best_chain_kmers([r.seq for r in reads])
             prg_best = np.zeros(len(reads), dtype=np.int64)

@@ -31,7 +31,12 @@ there, on a card straight from the device (each region is page-locked in
 the server's process with ``cudaHostRegister`` when it is mapped).  A reply
 carries the jobs run, the device type they ran on, the launches of each
 kernel and the device milliseconds of each launch (CUDA events), or the
-server's exception text, which the worker raises.
+server's exception text, which the worker raises.  While the worker's
+task is traced, a request's header also carries the caller's span and the
+time it was sent (``timing.clock()``), and the server records the request
+as the span ``server.request``: its kind, the worker's pid, the jobs, the
+bytes in and out, and ``wait_ns``, the time from the send to the start of
+service (the request's wait in the server's queue).
 
 One thread serves one request at a time, in arrival order across the
 workers (``multiprocessing.connection.wait``).  A worker's connection that
@@ -61,6 +66,7 @@ from multiprocessing.connection import Client, Listener, wait
 import numpy as np
 
 from .._lazy import torch
+from ..utils import timing
 from .aligner import MAX_JOBS, NWRunner, jobs_per_call
 
 KERNELS = ("K1", "K2", "K3")
@@ -204,7 +210,11 @@ class DeviceServer:
                 peer = peers[conn]
                 try:
                     msg = conn.recv()
-                    reply = self._handle(conn, peer, msg)
+                    # the span ends before the reply goes, inside the
+                    # caller's own span
+                    with _request_span(msg, peer.pid) as sp:
+                        reply = self._handle(conn, peer, msg)
+                        sp.set(jobs=reply.get("jobs", 0))
                     conn.send(reply)
                 except Exception:   # noqa: BLE001 — the connection is lost
                     # the worker is gone, mid-request or idle (or sent what
@@ -330,6 +340,21 @@ class DeviceServer:
         os.close(self._wake_w)
 
 
+def _request_span(msg: dict, pid):
+    """The span of a traced task's request, whose header carries the
+    caller's span and the time it was sent; the no-op span otherwise."""
+    if "sent_ns" not in msg:
+        return timing.NOOP
+    wait_ns = timing.clock() - msg["sent_ns"]
+    n_in = msg["n_in"]
+    sizes = [int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
+             for _, shape, dt in msg["arrays"]]
+    return timing.span("server.request", parent=msg["span"],
+                       kind=msg["kind"], pid=pid, wait_ns=wait_ns,
+                       bytes_in=sum(sizes[:n_in]),
+                       bytes_out=sum(sizes[n_in:]))
+
+
 # ----------------------------------------------------------- worker side
 @dataclass(frozen=True)
 class ServedDevice:
@@ -418,10 +443,14 @@ class DeviceClient:
                   for off, (shape, dtype) in zip(offs, specs)]
         for dst, src in zip(arrays, inputs):
             np.copyto(dst, src)
-        reply = self._ask({
-            "kind": kind, "n_in": len(inputs),
-            "arrays": [(off, shape, np.dtype(dt).str)
-                       for off, (shape, dt) in zip(offs, specs)], **fields})
+        header = {"kind": kind, "n_in": len(inputs),
+                  "arrays": [(off, shape, np.dtype(dt).str)
+                             for off, (shape, dt) in zip(offs, specs)],
+                  **fields}
+        ctx = timing.context()
+        if ctx is not None:
+            header.update(span=ctx[1], sent_ns=timing.clock())
+        reply = self._ask(header)
         self._raise(reply)
         self.requests += 1
         for k, n in reply["launches"].items():

@@ -25,14 +25,17 @@ A worker's counters (``Stats``, with the launches the server made for it as
 the parent, with a report that the worker has not initialised CUDA (the
 parent raises if one has); an exception in a worker or in the server
 reaches the caller through the pool, and a worker that dies ends the run
-(``DeviceServer.watch``).
+(``DeviceServer.watch``).  In a traced sample (``utils/timing.py``) each
+task carries the sample's span context, and the worker's spans come back
+beside its counters.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
 import os
-import time
+
+from ..utils import timing
 
 _WORKER_ALIGNER = None
 _STAT_FIELDS = ("n_align_calls", "considered_chains",
@@ -78,32 +81,42 @@ def add_counters(stats, delta: dict) -> None:
 def _init_worker(graph_dir: str, band, kmer_k: int, long_reads: str,
                  decoy_fasta: str = "", map_complete: bool = False,
                  server: tuple = (), region_share: int | None = None,
-                 t_pool: float | None = None):
+                 t_pool: int | None = None, trace: tuple | None = None):
     """A host-only alignment worker: its aligner's NW forward is the
-    device server's (`server`: DeviceServer.initargs)."""
+    device server's (`server`: DeviceServer.initargs).  `t_pool`: the
+    pool's start on timing.clock(); `trace`: the sample's
+    timing.context(), under which the worker records its start as the
+    spans worker.init, worker.imports, worker.connect and worker.package,
+    sent back with its first task's result."""
     global _WORKER_ALIGNER
-    t_enter = time.time()
+    t_enter = timing.clock()
     from ..graph.package import GraphPackage
     from ..utils.config import RunConfig
     from . import aligner, device_server
     cfg = RunConfig(long_reads=long_reads, decoy_fasta=decoy_fasta,
                     map_against_complete_genome=map_complete)
     served = device_server.connect(*server, region_share=region_share)
-    t_connected = time.time()
+    t_connected = timing.clock()
     pkg = GraphPackage(graph_dir)
     from .pipeline import build_decoy
     decoy = build_decoy(pkg, cfg)   # cache-hit after the parent built it
     _WORKER_ALIGNER = aligner.ReadAligner(
         pkg, cfg, band=band, kmer_k=kmer_k, decoy=decoy,
         device=served.device, nw_runner=device_server.ServedNWRunner(served))
-    from ..utils.timing import log_progress
+    t_ready = timing.clock()
     t_pool = t_pool or t_enter
-    log_progress(
+    with timing.task(trace):
+        init = timing.record("worker.init", t_pool, t_ready)
+        timing.record("worker.imports", t_pool, t_enter, parent=init)
+        timing.record("worker.connect", t_enter, t_connected, parent=init)
+        timing.record("worker.package", t_connected, t_ready, parent=init)
+    timing.log_progress(
         f"alignment worker {os.getpid()} ready, host-only, served on "
-        f"{served.device} {time.time() - t_pool:.1f} s after the pool "
-        f"was made: process start and imports {t_enter - t_pool:.1f} s, "
-        f"connection to the device server {t_connected - t_enter:.1f} s, "
-        f"package and aligner {time.time() - t_connected:.1f} s; torch "
+        f"{served.device} {(t_ready - t_pool) / 1e9:.1f} s after the pool "
+        f"was made: process start and imports "
+        f"{(t_enter - t_pool) / 1e9:.1f} s, connection to the device "
+        f"server {(t_connected - t_enter) / 1e9:.1f} s, package and aligner "
+        f"{(t_ready - t_connected) / 1e9:.1f} s; torch "
         f"imported: {device_server.torch_imported()}, CUDA initialised: "
         f"{device_server.cuda_initialized()}")
 
@@ -114,19 +127,26 @@ def _report() -> dict:
 
 
 def _align_chunk(args):
-    idx, packed, insert_mean, insert_sd = args
+    # a traced task's spans go back beside its counters (after its first
+    # task, with the worker's start)
+    idx, packed, insert_mean, insert_sd, *trace = args
     before = _counters()
-    pack = pack_aligned_pairs(
-        _WORKER_ALIGNER.align_pairs(unpack_read_pairs(packed),
-                                    insert_mean, insert_sd))
-    return idx, pack, _counted(before), _report()
+    with timing.task(*trace), timing.span("align.chunk",
+                                          pairs=packed[0] // 2):
+        pack = pack_aligned_pairs(
+            _WORKER_ALIGNER.align_pairs(unpack_read_pairs(packed),
+                                        insert_mean, insert_sd))
+    return (idx, pack, _counted(before), _report(),
+            timing.drain() if trace else None)
 
 
 def _align_unpaired_chunk(args):
-    idx, packed = args
+    idx, packed, *trace = args
     before = _counters()
-    out = _WORKER_ALIGNER.align_unpaired(unpack_reads(packed))
-    return idx, out, _counted(before), _report()
+    with timing.task(*trace), timing.span("align.chunk", reads=packed[0]):
+        out = _WORKER_ALIGNER.align_unpaired(unpack_reads(packed))
+    return (idx, out, _counted(before), _report(),
+            timing.drain() if trace else None)
 
 
 def pack_reads(reads):
@@ -485,7 +505,8 @@ class ParallelAligner:
                                  initargs=(graph_dir, band, kmer_k,
                                            long_reads, decoy_fasta,
                                            map_complete, self.server.initargs,
-                                           self.region_share, time.time()))
+                                           self.region_share, timing.clock(),
+                                           timing.context(outermost=True)))
         finally:
             del os.environ["HLA_LA_IN_WORKER"]
             if self.pool is None:
@@ -510,14 +531,16 @@ class ParallelAligner:
         # still aligning the rest (pool.map would leave the parent idle and
         # then unpack everything serially); chunk ids restore the order
         slots = [None] * len(chunks)
-        for idx, res, counted, report in self.server.watch(
+        trace = timing.carry()
+        for idx, res, counted, report, spans in self.server.watch(
                 self.pool.imap_unordered(
                     _align_chunk,
-                    [(i, pack_read_pairs(c), insert_mean, insert_sd)
+                    [(i, pack_read_pairs(c), insert_mean, insert_sd, *trace)
                      for i, c in enumerate(chunks)])):
             slots[idx] = res
             add_counters(self.stats, counted)
             self.note_worker(report)
+            timing.add(spans)
         # the packed chunk arrays stay live end-to-end (PackedAlignedPairs):
         # GraphAlignment objects materialise lazily, only where consumed
         out = PackedAlignedPairs.from_chunks(slots)
@@ -541,13 +564,16 @@ class ParallelAligner:
         chunk = max(256, -(-len(reads) // (self.n_workers * 2)))
         chunks = [reads[i:i + chunk] for i in range(0, len(reads), chunk)]
         slots = [None] * len(chunks)
-        for idx, res, counted, report in self.server.watch(
+        trace = timing.carry()
+        for idx, res, counted, report, spans in self.server.watch(
                 self.pool.imap_unordered(
                     _align_unpaired_chunk,
-                    [(i, pack_reads(c)) for i, c in enumerate(chunks)])):
+                    [(i, pack_reads(c), *trace)
+                     for i, c in enumerate(chunks)])):
             slots[idx] = res
             add_counters(self.stats, counted)
             self.note_worker(report)
+            timing.add(spans)
         out = [al for res in slots for al in res]
         if truth is not None:
             for r, al in zip(reads, out):

@@ -34,7 +34,7 @@ from ..device import resolve
 from ..graph.package import GraphPackage
 from ..io.fastq import FastqRead, read_fastq
 from ..utils.config import RunConfig
-from ..utils.timing import Timer, log_progress
+from ..utils.timing import Timer, log_progress, root, span
 from .aligner import AlignedPair, ReadAligner
 from .typer import HLATyper, LocusResult
 
@@ -173,7 +173,9 @@ def run_hla_typing(pkg: GraphPackage,
     cfg = cfg or RunConfig()
     pairs = pairs or []
     unpaired = unpaired or []
-    with _rank_output_dir(output_dir, sharded) as out_dir:
+    with _rank_output_dir(output_dir, sharded) as out_dir, \
+            root("run_hla_typing", pairs=len(pairs), unpaired=len(unpaired),
+                 max_threads=cfg.max_threads):
         return _run_hla_typing(pkg, pairs, unpaired, out_dir, cfg, dev,
                                truth, sharded)
 
@@ -182,16 +184,19 @@ def _run_hla_typing(pkg, pairs, unpaired, output_dir, cfg, dev, truth,
                     sharded) -> PipelineResult:
     os.makedirs(output_dir, exist_ok=True)
 
-    decoy = build_decoy(pkg, cfg)
-    if decoy is not None:
-        log_progress("paralog defense active (decoy k-mer index, "
-                     f"{len(decoy.index.seq_names)} decoy contigs)")
-    aligner = ReadAligner(pkg, cfg, decoy=decoy, device=dev, sharded=sharded)
+    with span("pipeline.prepare"):
+        decoy = build_decoy(pkg, cfg)
+        if decoy is not None:
+            log_progress("paralog defense active (decoy k-mer index, "
+                         f"{len(decoy.index.seq_names)} decoy contigs)")
+        aligner = ReadAligner(pkg, cfg, decoy=decoy, device=dev,
+                              sharded=sharded)
 
     insert_mean, insert_sd = 300.0, 100.0
     if pairs:
-        log_progress("estimating insert size distribution")
-        insert_mean, insert_sd = aligner.estimate_insert_size(pairs)
+        with span("pipeline.insert_size", pairs=len(pairs)):
+            log_progress("estimating insert size distribution")
+            insert_mean, insert_sd = aligner.estimate_insert_size(pairs)
         log_progress(f"insert size estimate: mean {insert_mean}, sd {insert_sd}")
 
     # on a mesh every rank decides alike (the same input and __main__);
@@ -201,7 +206,8 @@ def _run_hla_typing(pkg, pairs, unpaired, output_dir, cfg, dev, truth,
     if pooled and (sharded is None or sharded.rank == 0):
         log_progress(f"aligning with {cfg.max_threads} worker processes "
                      f"on {dev}")
-        par = _start_pool(pkg, cfg, dev)
+        with span("pool.start", workers=cfg.max_threads):
+            par = _start_pool(pkg, cfg, dev)
 
     with Timer("align") as t:
         if pooled and sharded is not None:
@@ -224,11 +230,12 @@ def _run_hla_typing(pkg, pairs, unpaired, output_dir, cfg, dev, truth,
 
     # end-of-alignment statistics (reference prints aligner::statistics,
     # processBAM.cpp:1860); the workers' counters are summed into them
-    if par is not None:
-        from .parallel_host import add_counters, stats_counters
-        add_counters(aligner.stats, stats_counters(par.stats))
-    aligner.stats.n_align_calls += len(aligned_pairs)
-    log_progress(aligner.stats.report())
+    with span("align.stats"):
+        if par is not None:
+            from .parallel_host import add_counters, stats_counters
+            add_counters(aligner.stats, stats_counters(par.stats))
+        aligner.stats.n_align_calls += len(aligned_pairs)
+        log_progress(aligner.stats.report())
 
     try:
         # the warm alignment workers (package in memory) also serve
@@ -244,7 +251,8 @@ def _run_hla_typing(pkg, pairs, unpaired, output_dir, cfg, dev, truth,
                      f"on {dev}")
     finally:
         if par is not None:
-            par.close()
+            with span("pool.close"):
+                par.close()
     return PipelineResult(results, len(pairs), len(aligned_pairs), rps,
                           insert_mean, insert_sd)
 

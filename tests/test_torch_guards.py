@@ -318,7 +318,7 @@ def test_cpu_slice_runs_with_jax_blocked(capsys, tmp_path):
 # (comment and docstring lines that quoted host timings of the reference's
 # development machine, or named the reference package).
 COPIED_MODULES = """
-utils/__init__ utils/config utils/timing utils/phred utils/nomenclature
+utils/__init__ utils/config utils/phred utils/nomenclature
 io/__init__ io/fastq io/fasta io/bam io/cram io/rans io/rans_nx16 io/arith
 io/tok3 io/fqzcomp io/cram_write native graph/__init__ graph/prg
 graph/package
@@ -436,26 +436,34 @@ def test_copied_module_is_the_reference_text(module):
 # ones: the device seams, the dropped worker-process branches, and comments
 # that quoted host timings.
 REWRITTEN_UNITS = {
+    # the Timer is also a span of the port's span recorder
+    "utils/timing": {"Timer.__enter__", "Timer.__exit__"},
     "ops/banded_nw": set(),
     "ops/pair_ll": {"cluster_read_ll", "pair_ll_reduction",
                     "pair_min_mismatch_row"},
+    # (and the spans of seeding, of the NW staging and call and of the
+    # backtrace, projection and pair selection)
     "models/aligner": {
         "ReadAligner.__init__", "ReadAligner._run_nw",
         "ReadAligner._jobs_to_alignments", "ReadAligner._align_jobs_arrays",
-        "ReadAligner._align_jobs_soa", "ReadAligner._align_core_raw"},
+        "ReadAligner._align_jobs_soa", "ReadAligner._align_core_raw",
+        "ReadAligner._align_core", "ReadAligner.align_pairs",
+        "ReadAligner.align_unpaired"},
     # type_all asks the fan-out's gate, HLATyper.fans_out (a method of the
     # port alone, which the ranks of a mesh also ask); the fan-out differs
     # where a worker's failure must end the run, where the host-only
     # workers' device calls go to a device server, where the K3 launches
     # made for them come back, and where unpaired chains are packed
-    # without their quality caches
+    # without their quality caches; the typer's spans, where the output
+    # threads' spans and waits are recorded too
     "models/typer": {
         "HLATyper.__init__", "HLATyper._type_locus",
         "HLATyper._setup_pair_ranges", "HLATyper._collect_locus_obs",
         "HLATyper._column_qc", "HLATyper._write_pileup",
         "HLATyper._write_summary_statistics", "KmerCountIndex.build",
         "HLATyper.type_all", "HLATyper._type_loci_parallel",
-        "_typing_worker", "_typing_worker_init", "_pack_optional_chains"},
+        "_typing_worker", "_typing_worker_init", "_pack_optional_chains",
+        "_AsyncOutput.submit", "_AsyncOutput.flush"},
     # the device and mesh seams; _align_all, _shard_path and
     # _write_reads_per_level are the reference's text
     "models/pipeline": {"run_hla_typing", "_type_and_write", "align_shard",
