@@ -228,6 +228,17 @@ and (t) run before (e), while the IMGT-scale world is still being built;
       rank 0's 4 workers align them, K2 launched for them by its device
       server, rank 1 takes the unpaired chains and both type them in the
       sharded typer, held to (i)'s cuda run as above.
+  (ai) the pair epilogue (``ops/pair_ll.pair_epilogue``) at C x R =
+      2,200 x 180 (an ``hla-imgt2`` locus) and 1,200 x 400, a quarter of
+      the clusters' LL rows distinct and the rest their copies, as IMGT
+      clusters tie, the mismatch rows tied apart from them: the card
+      route against the host route on the same K3 input (the host route
+      with K3 on the card, as a served typer takes it),
+      the dump's columns and order, the triangle's values, P, the
+      marginals, best1, best2, Q1, Q2 and the dump's bytes bit-identical,
+      the card route counted; each route's host seconds and the card
+      route's card time by CUDA events, median of 5 after a warm-up.
+      (ai) runs first, before any world is built, on a quiet host.
   The three real-scale worlds and tpu_e2e.py's world are built in
   processes of their own from the start, beside the others (the four-locus
   world and the long reads of (aa) once the world of (e) is there), and
@@ -1794,6 +1805,86 @@ def same_outputs(got_dir: str, want_dir: str, tag: str) -> int:
     return len(names)
 
 
+def pair_epilogue_phase(shapes=((2200, 180), (1200, 400)),
+                        reps: int = 5) -> list[dict]:
+    """(ai): the pair epilogue's card route against its host route."""
+    import numpy as np
+    import torch
+    from hla_la_tpu_torch import native
+    from hla_la_tpu_torch.ops import pair_ll as pl
+    phase("(ai) the pair epilogue: card route against host route")
+    out = []
+    for C, R in shapes:
+        rng = np.random.default_rng(C * 1000 + R)
+        base = rng.integers(0, C // 4, C)
+        L = rng.normal(-35, 2, (C // 4, R)).astype(np.float32)[base]
+        MM = rng.integers(0, 3, (C // 4, R)).astype(np.float32)[
+            rng.integers(0, C // 4, C)]
+        mrs = MM.sum(axis=1)
+        ids = [f"A*{i:04d};A*{i:04d}N".encode() for i in range(C)]
+        routes = {"host": lambda: pl.pair_epilogue(
+                      L, mrs, "cuda", reduce=pl.pair_ll_reduction),
+                  "card": lambda: pl.pair_epilogue(L, mrs, "cuda")}
+        got, wall, card_ms, post_s = {}, {}, {}, {}
+        for name, fn in routes.items():
+            calls = pl.pair_epilogue.card_calls
+            got[name] = fn()                                  # warm-up
+            if pl.pair_epilogue.card_calls != calls + (name == "card"):
+                fail(f"(ai) the {name} route at C = {C} took the other")
+            w, ev = [], []
+            for _ in range(reps):
+                sync()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                e0.record()
+                fn()
+                e1.record()
+                e1.synchronize()
+                w.append(time.perf_counter() - t0)
+                ev.append(e0.elapsed_time(e1))
+            wall[name], card_ms[name] = sorted(w)[reps // 2], \
+                sorted(ev)[reps // 2]
+            t0 = time.perf_counter()
+            post = pl.pair_posterior(got[name][4], got[name][2], MM)
+            post_s[name] = time.perf_counter() - t0
+            got[name] = (*got[name], post, native.format_pairs(
+                got[name][0], got[name][1], post.P_o, got[name][2],
+                got[name][3], ids))
+        h, c = got["host"], got["card"]
+        for k, a, b in zip(("a", "b", "LL_o", "MM_o", "pair_vals"), h, c):
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                fail(f"(ai) {k} differs between the routes at C = {C}")
+        ph, pc = h[5], c[5]
+        if (ph.P_o.tobytes(), ph.marg.tobytes(), ph.best1, ph.best2,
+                ph.best2_p, float(ph.mm_min_row[ph.best2])) != \
+                (pc.P_o.tobytes(), pc.marg.tobytes(), pc.best1, pc.best2,
+                 pc.best2_p, float(pc.mm_min_row[pc.best2])):
+            fail(f"(ai) the posterior differs between the routes at C = {C}")
+        if h[6] is None or h[6] != c[6]:
+            fail(f"(ai) the pair dump differs between the routes at C = {C}")
+        k3_ms = cuda_ms(lambda: pl.pair_ll_diff_cuda(
+            torch.from_numpy(L).cuda()), reps)
+        row = {"C": C, "R": R, "pairs": C * (C + 1) // 2,
+               "tied_share": float(1 - len(np.unique(h[4])) / len(h[4])),
+               "host_route_s": wall["host"], "card_route_s": wall["card"],
+               "host_route_events_ms": card_ms["host"],
+               "card_route_events_ms": card_ms["card"],
+               "k3_with_copy_in_ms": k3_ms,
+               "posterior_s": post_s["card"],
+               "dump_bytes": len(c[6]),
+               "card_calls": pl.pair_epilogue.card_calls}
+        print(f"pair epilogue at C = {C}, R = {R} ({row['pairs']} pairs, "
+              f"{row['tied_share']:.4f} of the pair values tied): "
+              f"bit-identical; host route {wall['host']:.4f} s, card route "
+              f"{wall['card']:.4f} s host, {card_ms['card']:.3f} ms between "
+              f"its CUDA events (K3 with its copy in {k3_ms:.3f} ms); the "
+              f"posterior {post_s['card']:.4f} s", flush=True)
+        out.append(row)
+    print(json.dumps({"pair_epilogue": out}), flush=True)
+    return out
+
+
 def check_tile_ranges(C: int, R: int) -> None:
     """K3 with a tile range: the ranges that 2 and 4 model ranks take sum to
     the one-call matrix bit for bit, and one range agrees with the plain
@@ -2878,6 +2969,7 @@ def main() -> int:
     print(lib.log.strip())
 
     rec = kernel_records()
+    pair_epilogue_phase()
     start_world_builds()
     start_real_scale_builds()
     start_e2e_build()

@@ -19,9 +19,18 @@ Device half:
   device computes the bounded difference term (K3 on a CUDA tensor,
   ``pair_ll_diff_plain`` on a CPU tensor); the rank-1 term and the per-read
   constant are added on the host in float64.
+- ``pair_epilogue``: the typer's pair step after K3, up to the pair dump's
+  columns in the dump's order.  Where the process owns its card, K3's
+  output stays there to be assembled, packed into the upper triangle and
+  ordered (``_pair_epilogue_card``); a CPU device, a served typer and a
+  mesh's ranks take the host's numpy.  ``pair_posterior`` is the float64
+  posterior that follows, on the host.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 
@@ -332,3 +341,149 @@ def _pair_ll_diff(L: torch.Tensor, tile_range=None
     if on_card(L):
         return pair_ll_diff_cuda(L, tile_range)
     return pair_ll_diff_plain(L, tile_range=tile_range)
+
+
+# ------------------------------------------------------------ pair epilogue
+# What the typer makes of the [C, C] pair log-likelihoods before its
+# posterior: the upper triangle (c1 <= c2, row-major) and the pair dump's
+# columns in the dump's order.  A process that owns its card keeps K3's
+# output there for all of it; every other caller takes the host's numpy.
+
+@functools.lru_cache(maxsize=4)
+def triangle(C: int) -> tuple[np.ndarray, np.ndarray]:
+    """np.triu_indices(C), read-only: the pairs c1 <= c2, row-major."""
+    iu = np.triu_indices(C)
+    for a in iu:
+        a.setflags(write=False)
+    return iu
+
+
+@functools.lru_cache(maxsize=4)
+def _triangle_on(C: int, dev: torch.device):
+    iu = torch.triu_indices(C, C, device=dev)     # row-major, as numpy's
+    return iu[0], iu[1]
+
+
+def epilogue_on_card(device, sharded=None, reduce=None) -> bool:
+    """Whether pair_epilogue keeps K3's output on the card: only where this
+    process owns a CUDA device, so not for a served typer (`reduce` given:
+    the device server's reduction) nor on a mesh's ranks (`sharded`)."""
+    return (reduce is None and sharded is None
+            and torch.device(device).type == "cuda")
+
+
+def pair_epilogue(L: np.ndarray, mm_rowsum: np.ndarray, device,
+                  sharded=None, reduce=None):
+    """From the [C, R] per-cluster read log-likelihoods `L` and the
+    per-cluster mismatch row sums `mm_rowsum` [C] (float32), the pair dump's
+    columns in its order and the triangle's pair log-likelihoods:
+    (a, b) int32 cluster indices, LL_o float64, MM_o float32 (the pair's
+    Mismatches_avg), pair_vals float64 in triangle order.
+
+    The dump's order is LL descending, ties by ascending Mismatches_avg
+    (the reference's sort comparator, HLATyper.cpp:2382-2404), deeper ties
+    by triangle index: np.lexsort's.  Both routes give the same bits: the
+    same float64 and float32 operations, element for element, and the same
+    permutation.  `reduce`: the pair reduction of a typer that does not own
+    its device (a served typing worker's); `sharded`: a parallel.mesh.Mesh.
+    """
+    if epilogue_on_card(device, sharded, reduce):
+        pair_epilogue.card_calls += 1
+        return _pair_epilogue_card(L, mm_rowsum, resolve(device))
+    pair_LL = (reduce or pair_ll_reduction)(L, device=device,
+                                            sharded=sharded)
+    iu0, iu1 = triangle(L.shape[0])
+    pair_vals = pair_LL[iu0, iu1]
+    mism_avg = 0.5 * (mm_rowsum[iu0] + mm_rowsum[iu1])
+    # lexsort is stable and far faster than a structured argsort on the
+    # 2.4M pairs of an IMGT-scale locus
+    order = np.lexsort((mism_avg, -pair_vals))
+    return (iu0[order].astype(np.int32), iu1[order].astype(np.int32),
+            pair_vals[order], mism_avg[order], pair_vals)
+
+
+# card routes taken by pair_epilogue in this process
+pair_epilogue.card_calls = 0
+
+
+def _pair_epilogue_card(L: np.ndarray, mm_rowsum: np.ndarray,
+                        dev: torch.device):
+    """pair_epilogue on `dev` (a CPU device runs the same steps with K3's
+    plain version): K3's output assembled, packed, ordered and gathered
+    where it is, then copied into pinned host memory with one
+    synchronisation.  The row sums come from the host, as the host route
+    computes them, so that every float64 value is the host's."""
+    C = L.shape[0]
+    Lt = to_device(np.asarray(L, dtype=np.float32), dev)
+    rowsum = to_device(L.astype(np.float64).sum(axis=1), dev)
+    mrs = to_device(np.asarray(mm_rowsum), dev)
+    iu0, iu1 = _triangle_on(C, dev)
+    if Lt.numel():
+        acc, rpad = _pair_ll_diff(Lt)
+        pair_vals = pair_ll_assemble(acc.to(torch.float64), rpad,
+                                     rowsum)[iu0, iu1]
+    else:
+        pair_vals = torch.zeros(len(iu0), dtype=torch.float64, device=dev)
+    mism_avg = 0.5 * (mrs[iu0] + mrs[iu1])
+    # np.lexsort((mism_avg, -pair_vals)) as two stable sorts, the minor key
+    # first; 0.0 - x and x + 0.0 turn -0.0 into 0.0, which numpy's sort
+    # holds equal and a radix sort would not
+    by_mm = torch.sort(mism_avg + 0.0, stable=True).indices
+    order = by_mm[torch.sort((0.0 - pair_vals)[by_mm], stable=True).indices]
+    cols = (iu0[order].to(torch.int32), iu1[order].to(torch.int32),
+            pair_vals[order], mism_avg[order], pair_vals)
+    card = on_card(Lt)
+    host = [torch.empty(c.shape, dtype=c.dtype, pin_memory=card)
+            for c in cols]
+    for h, c in zip(host, cols):
+        h.copy_(c, non_blocking=True)
+    if card:
+        torch.cuda.current_stream(dev).synchronize()
+    return tuple(h.numpy() for h in host)
+
+
+class PairPosterior(NamedTuple):
+    marg: np.ndarray        # [C] marginal posterior of each cluster
+    best1: int              # the best marginal
+    best2: int              # the best partner of best1
+    best2_p: float          # the posterior of (best1, best2)
+    mm_min_row: np.ndarray  # [C] Mismatches_min of (best1, c)
+    P_o: np.ndarray         # the dump's P, in the dump's order
+
+
+def pair_posterior(pair_vals: np.ndarray, LL_o: np.ndarray,
+                   mm: np.ndarray) -> PairPosterior:
+    """The float64 pair posterior on the host, from pair_epilogue's
+    triangle-order pair log-likelihoods `pair_vals` and its dump-order LL
+    column `LL_o`, with the [C, R] mismatches `mm` for best2's tie-break."""
+    C = mm.shape[0]
+    iu = triangle(C)
+    max_ll = float(pair_vals.max()) if len(pair_vals) else 0.0
+    P = np.exp(pair_vals - max_ll)
+    s = P.sum()
+    P = P / s if s > 0 else np.full_like(P, 1.0 / len(P))
+
+    # marginal per-cluster posterior (HLATyper.cpp:2489-2517)
+    marg = np.zeros(C)
+    np.add.at(marg, iu[0], P)
+    sec = iu[1] != iu[0]
+    np.add.at(marg, iu[1][sec], P[sec])
+    best1 = int(np.argmax(marg))
+
+    # conditional second allele (2519-2538); triangular index of the
+    # (a<=b) pair in row-major upper-triangle order
+    def tri_idx(a, b):
+        return a * C - (a * (a - 1)) // 2 + (b - a)
+    c2s = np.arange(C)
+    a_arr = np.minimum(best1, c2s)
+    b_arr = np.maximum(best1, c2s)
+    cand_P = P[tri_idx(a_arr, b_arr)]
+    best2_p = float(cand_P.max())
+    mm_min_row = pair_min_mismatch_row(mm, best1)
+    tie = np.nonzero(cand_P == best2_p)[0]
+    best2 = int(tie[np.argmax(-mm_min_row[tie])])
+
+    # elementwise, so P[order] bit for bit without the gather
+    P_o = np.exp(LL_o - max_ll) / s if s > 0 else \
+        np.full_like(LL_o, 1.0 / len(LL_o))
+    return PairPosterior(marg, best1, best2, best2_p, mm_min_row, P_o)

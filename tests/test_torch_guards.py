@@ -714,7 +714,7 @@ DEVICE_PATH_FILES = ["_build.py", "device.py", "cli.py", "profile_e2e.py",
 DEVICE_CALLS = {"banded_nw_forward_torch", "banded_nw_cuda",
                 "banded_nw_long_cuda", "pair_ll_diff_cuda",
                 "pair_ll_reduction", "cluster_read_ll", "_run_nw", "_forward",
-                "_pair_ll_diff", "library", "build", "resolve", "to_device",
+                "_pair_ll_diff", "pair_epilogue", "library", "build", "resolve", "to_device",
                 "run_hla_typing", "run_jobs", "scores", "NWRunner",
                 "_read_ll_rows", "_score_jobs", "haplotype_likelihoods",
                 "type_diploid", "type_diploid_paired", "_exon_distances",

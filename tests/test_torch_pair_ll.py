@@ -15,7 +15,8 @@ from hla_la_tpu.ops.pallas_pair import pair_ll_reduction_pallas
 from hla_la_tpu_torch.ops.pair_ll import (PAIR_TILE, PLAIN_CELLS,
                                           cluster_read_ll,
                                           pair_ll_diff_plain,
-                                          pair_ll_reduction, pair_tiles,
+                                          pair_ll_reduction,
+                                          pair_min_mismatch_row, pair_tiles,
                                           plain_chunk)
 
 torch.set_num_threads(1)
@@ -152,3 +153,146 @@ def test_plain_tile_ranges_sum_to_the_whole_exactly(C, R):
     for bad in ((-1, 1), (0, n + 1), (n, 1)):
         with pytest.raises(ValueError, match="tile range"):
             pair_ll_diff_plain(L, tile_range=bad)
+
+
+# ------------------------------------------------------------ pair epilogue
+def _parent_pairs(pair_LL, MM):
+    """The typer's pair step as it stood before pair_epilogue: the
+    triangle, the posterior, the marginals, best1 and best2, and the
+    dump's columns by np.lexsort, all on the host."""
+    C = MM.shape[0]
+    iu = np.triu_indices(C)
+    pair_vals = pair_LL[iu]
+    max_ll = float(pair_vals.max()) if len(pair_vals) else 0.0
+    P = np.exp(pair_vals - max_ll)
+    s = P.sum()
+    P = P / s if s > 0 else np.full_like(P, 1.0 / len(P))
+    marg = np.zeros(C)
+    np.add.at(marg, iu[0], P)
+    sec = iu[1] != iu[0]
+    np.add.at(marg, iu[1][sec], P[sec])
+    best1 = int(np.argmax(marg))
+    c2s = np.arange(C)
+    a, b = np.minimum(best1, c2s), np.maximum(best1, c2s)
+    cand_P = P[a * C - (a * (a - 1)) // 2 + (b - a)]
+    best2_p = float(cand_P.max())
+    mm_min_row = pair_min_mismatch_row(MM, best1)
+    tie = np.nonzero(cand_P == best2_p)[0]
+    best2 = int(tie[np.argmax(-mm_min_row[tie])])
+    mrs = MM.sum(axis=1)
+    mism_avg = 0.5 * (mrs[iu[0]] + mrs[iu[1]])
+    order = np.lexsort((mism_avg, -pair_vals))
+    return {"a": iu[0][order], "b": iu[1][order], "P_o": P[order],
+            "LL_o": pair_vals[order], "MM_o": mism_avg[order],
+            "pair_vals": pair_vals, "marg": marg, "best1": best1,
+            "best2": best2, "q1": (float(marg[best1]), best2_p),
+            "q2": float(-mm_min_row[best2])}
+
+
+def _epilogue_case(name):
+    """(L, MM, K3's difference term or None): None runs the plain version,
+    an array stands in for it, for inputs whose plain run is long."""
+    rng = np.random.default_rng(len(name))
+    if name == "c520":
+        L = rng.normal(-40, 8, (520, 120)).astype(np.float32)
+        MM = rng.integers(0, 6, (520, 120)).astype(np.float32)
+        return L, MM, None
+    if name == "c2200_tied":
+        # IMGT clusters: many identical rows, so that nearly every pair
+        # value is tied and the order rests on Mismatches_avg (rows tied
+        # apart from the LL rows') and the triangle index; the difference
+        # term of the 40 distinct rows, spread to their copies
+        base = rng.integers(0, 40, 2200)
+        Ld = rng.normal(-35, 2, (40, 180)).astype(np.float32)
+        MMd = rng.integers(0, 3, (40, 180)).astype(np.float32)
+        acc, _ = pair_ll_diff_plain(torch.from_numpy(Ld))
+        return (Ld[base], MMd[rng.integers(0, 40, 2200)],
+                acc[base][:, base])
+    if name == "c1":
+        return (rng.normal(-30, 5, (1, 50)).astype(np.float32),
+                np.ones((1, 50), np.float32), None)
+    if name == "all_equal":
+        return (np.full((37, 64), -12.5, np.float32),
+                np.zeros((37, 64), np.float32), None)
+    assert name == "no_reads"
+    return np.zeros((9, 0), np.float32), np.zeros((9, 0), np.float32), None
+
+
+@pytest.mark.parametrize("case", ["c520", "c2200_tied", "c1", "all_equal",
+                                  "no_reads"])
+def test_pair_epilogue_card_steps_match_the_host_bit_for_bit(case,
+                                                             monkeypatch):
+    """The card route's PyTorch steps, run on CPU tensors with K3's plain
+    version standing in, against the host route and the typer's pair step
+    as it was: the dump's columns, order and bytes, the triangle's values,
+    the marginals, best1, best2, Q1 and Q2, all bit for bit."""
+    from hla_la_tpu_torch import native
+    from hla_la_tpu_torch.ops import pair_ll as port_pair
+    L, MM, acc = _epilogue_case(case)
+    C, R = L.shape
+    if acc is not None:
+        real = port_pair._pair_ll_diff
+        chunk = plain_chunk(C, R)
+        rpad = -(-R // chunk) * chunk
+        monkeypatch.setattr(port_pair, "_pair_ll_diff",
+                            lambda t: (acc, rpad) if t.shape == (C, R)
+                            else real(t))
+    want = _parent_pairs(pair_ll_reduction(L, "cpu"), MM)
+    mrs = MM.sum(axis=1)
+    calls = port_pair.pair_epilogue.card_calls
+    host = port_pair.pair_epilogue(L, mrs, "cpu")
+    card = port_pair._pair_epilogue_card(L, mrs, torch.device("cpu"))
+    assert port_pair.pair_epilogue.card_calls == calls
+    ids = [f"c{i};x{i % 7}".encode() for i in range(C)]
+    dumps = set()
+    for got in (host, card):
+        a, b, LL_o, MM_o, pair_vals = got
+        assert (a.dtype, b.dtype, LL_o.dtype, MM_o.dtype, pair_vals.dtype) \
+            == (np.int32, np.int32, np.float64, np.float32, np.float64)
+        for k, v in zip(("a", "b", "LL_o", "MM_o", "pair_vals"), got):
+            np.testing.assert_array_equal(v, want[k], err_msg=k)
+        post = port_pair.pair_posterior(pair_vals, LL_o, MM)
+        assert post.P_o.tobytes() == want["P_o"].tobytes()
+        assert post.marg.tobytes() == want["marg"].tobytes()
+        assert (post.best1, post.best2) == (want["best1"], want["best2"])
+        assert (float(post.marg[post.best1]), post.best2_p) == want["q1"]
+        assert float(-post.mm_min_row[post.best2]) == want["q2"]
+        dumps.add(native.format_pairs(a, b, post.P_o, LL_o, MM_o, ids))
+    assert dumps == {native.format_pairs(want["a"], want["b"], want["P_o"],
+                                         want["LL_o"], want["MM_o"], ids)}
+    assert None not in dumps and len(next(iter(dumps)).splitlines()) == \
+        C * (C + 1) // 2
+
+
+@pytest.mark.parametrize("route", ["cpu", "served", "sharded", "card"])
+def test_pair_epilogue_dispatch(route, monkeypatch):
+    """Only a process that owns a CUDA device keeps K3's output on the
+    card: a CPU device, a served typer (the device server's reduction) and
+    a mesh's ranks take the host route."""
+    from hla_la_tpu_torch.ops import pair_ll as port_pair
+    L = np.random.default_rng(3).normal(-30, 5, (6, 20)).astype(np.float32)
+    mrs = np.arange(6, dtype=np.float32)
+    seen = []
+
+    def reduction(L, device, sharded=None):
+        seen.append((device, sharded))
+        return pair_ll_reduction(L, "cpu")
+
+    monkeypatch.setattr(port_pair, "pair_ll_reduction", reduction)
+    monkeypatch.setattr(port_pair, "resolve", torch.device)
+    monkeypatch.setattr(port_pair, "_pair_epilogue_card",
+                        lambda L, m, dev: ("card", dev))
+    device, kw = {"cpu": ("cpu", {}),
+                  "served": ("cuda", {"reduce": reduction}),
+                  "sharded": ("cuda", {"sharded": "mesh"}),
+                  "card": ("cuda:0", {})}[route]
+    calls = port_pair.pair_epilogue.card_calls
+    got = port_pair.pair_epilogue(L, mrs, device, **kw)
+    on_card = port_pair.epilogue_on_card(device, kw.get("sharded"),
+                                         kw.get("reduce"))
+    assert on_card == (route == "card")
+    assert port_pair.pair_epilogue.card_calls == calls + on_card
+    if on_card:
+        assert got == ("card", torch.device("cuda:0")) and seen == []
+    else:
+        assert seen == [(device, kw.get("sharded"))] and len(got) == 5

@@ -30,8 +30,8 @@ TYPED = re.compile(r"typed \d+ loci in ([0-9.]+) s on ")
 SERIAL = {"run_hla_typing", "pipeline.prepare", "pipeline.insert_size",
           "align", "align.seed", "align.nw", "align.select", "align.stats",
           "type", "typer.prepare", "typer.locus", "typer.pileup",
-          "typer.tensors", "typer.gemm", "typer.pairs", "typer.qc",
-          "typer.kmers", "typer.dump", "typer.write_wait"}
+          "typer.tensors", "typer.gemm", "typer.pairs", "typer.pairs.host",
+          "typer.qc", "typer.kmers", "typer.dump", "typer.write_wait"}
 POOLED = SERIAL | {"pool.start", "worker.init", "worker.imports",
                    "worker.connect", "worker.package", "align.chunk",
                    "server.request", "typer.fanout", "pool.close"}
@@ -115,6 +115,11 @@ def test_the_span_tree_of_one_sample(world, tmp_path, capfd, max_threads):
                for r in rec if r.name == "typer.gemm")
     assert all(by_id[r.parent].name == "typer.locus"
                for r in rec if r.name == "typer.dump")
+    # a CPU device and the served workers: the pair epilogue on the host
+    assert {r.attrs["route"] for r in rec if r.name == "typer.pairs"} == \
+        {"host"}
+    assert all(by_id[r.parent].name == "typer.pairs"
+               for r in rec if r.name == "typer.pairs.host")
     here = os.getpid()
     if max_threads == 1:
         assert {r.pid for r in rec} == {here}
@@ -171,6 +176,36 @@ def test_tracing_off_records_nothing_and_writes_the_same_files(
     for name in sorted(names):
         assert _read(str(tmp_path / "off" / name)) == \
             _read(str(tmp_path / "on" / name)), name
+    timing.clear()
+
+
+def test_the_card_route_of_the_pair_epilogue_writes_the_same_files(
+        world, tmp_path, monkeypatch):
+    """The pair epilogue's card route, made to run its PyTorch steps on
+    CPU tensors, types the sample into the same bytes as the host route:
+    every pair dump, the best guesses with Q1 and Q2; its spans say so."""
+    from hla_la_tpu_torch.models import typer as port_typer
+    from hla_la_tpu_torch.ops import pair_ll as port_pair
+    host = _typed(world, tmp_path / "host")
+    calls = port_pair.pair_epilogue.card_calls
+    for mod in (port_pair, port_typer):
+        monkeypatch.setattr(mod, "epilogue_on_card", lambda *a, **k: True)
+    card = _typed(world, tmp_path / "card")
+    assert port_pair.pair_epilogue.card_calls == calls + 4
+    for rec, route in ((host, "host"), (card, "card")):
+        pairs = [r for r in rec if r.name == "typer.pairs"]
+        assert len(pairs) == 4
+        assert {r.attrs["route"] for r in pairs} == {route}
+        kids = collections.Counter(r.name for r in rec
+                                   if r.parent in {p.id for p in pairs})
+        assert kids == ({"typer.pairs.card": 4, "typer.pairs.host": 4}
+                        if route == "card" else {"typer.pairs.host": 4})
+    names = _tree(str(tmp_path / "host"))
+    assert names == _tree(str(tmp_path / "card"))
+    assert {"hla/R1_PP_A_pairs.txt", "hla/R1_bestguess.txt"} <= names
+    for name in sorted(names):
+        assert _read(str(tmp_path / "host" / name)) == \
+            _read(str(tmp_path / "card" / name)), name
     timing.clear()
 
 
