@@ -1,10 +1,16 @@
 """The comparison that decides ``correct``, and its control.
 
-Four numbers, each against its limit in ``benchmark/limits/<cell>.json``:
+The numbers that a cell's ``benchmark/limits/<cell>.json`` names, each
+against its limit there; a named number with nothing captured to compare
+fails, and so does captured work whose number the file leaves out:
 
 - ``k1_jobs_differ``: of the K1 jobs drawn from the captured sample's
   launches, how many differ from the plain float32 forward in score, end
   cell, end state or any pointer row of the read (exact: limit 0);
+- ``k2_jobs_differ``: the same for the K2 jobs drawn from the captured
+  sample (one job of each of at most ``probes.K2_JOBS`` launches).  K1
+  and K2 are held to one plain forward, ``reference.nw_forward_wide``,
+  bit-equal in float32 to the step-by-step ``reference.nw_forward``;
 - ``ll_rel_gap``: over the captured sample's cluster x read products (the
   typer's GEMM, whose output K3 reduces; clusters and reads drawn from the
   seed), the widest gap between the port's LL and mismatch entries and the
@@ -18,21 +24,29 @@ Four numbers, each against its limit in ``benchmark/limits/<cell>.json``:
   limit 0).
 
 The reference follows the port from its own state at three points: K1's
-jobs are the windows the port's seeding chose, the GEMM's inputs are the
-typer's per-read tensors and cluster one-hot, and K3's input is the GEMM's
-output.  ``calls_wrong`` checks the whole path, from the reads to the
-calls, against the planted alleles alone.
+and K2's jobs are the windows the port's seeding chose, the GEMM's inputs
+are the typer's per-read tensors and cluster one-hot, and K3's input is
+the GEMM's output.  ``calls_wrong`` checks the whole path, from the reads
+to the calls, against the planted alleles alone.
 Imports nothing of the port.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from . import reference
 
-NUMBERS = ("k1_jobs_differ", "ll_rel_gap", "k3_rel_gap", "calls_wrong")
+# each number, and the count of what it compared
+COMPARED = {"k1_jobs_differ": "k1_jobs_compared",
+            "k2_jobs_differ": "k2_jobs_compared",
+            "ll_rel_gap": "ll_calls_compared",
+            "k3_rel_gap": "k3_launches_compared",
+            "calls_wrong": "loci_compared"}
+NUMBERS = tuple(COMPARED)
 
 
 def _k1_batches(k1: list[dict]) -> list[dict]:
@@ -48,20 +62,47 @@ def _k1_batches(k1: list[dict]) -> list[dict]:
              for k in caps[0]} for caps in groups.values()]
 
 
-def k1_jobs_differ(k1: list[dict], dtype=torch.float32, judged=None
+def _k2_batches(k2: list[dict]) -> list[dict]:
+    """The captured K2 jobs (live rows only) joined into one batch per (W,
+    scoring), as K1's batches are: reads and refs padded with code 4 and
+    pointer rows with 0 to the longest job's length.  Rows past a job's
+    length change none of its outputs and are not compared."""
+    groups: dict = {}
+    for job in k2:
+        W = len(job["refs"]) - job["len"]
+        key = (W, tuple(sorted(job["scoring"].items())))
+        groups.setdefault(key, []).append(job)
+    out = []
+    for (W, _), jobs in groups.items():
+        B, L = len(jobs), max(j["len"] for j in jobs)
+        cap = {"reads": np.full((B, L), 4, np.uint8),
+               "refs": np.full((B, L + W), 4, np.uint8),
+               "lens": np.array([j["len"] for j in jobs], np.int64),
+               "scoring": jobs[0]["scoring"],
+               "pointers": np.zeros((B, L + 1, W), np.uint8)}
+        for k in ("score", "end_k", "end_state"):
+            cap[k] = np.array([j[k] for j in jobs])
+        for b, j in enumerate(jobs):
+            cap["reads"][b, :j["len"]] = j["reads"]
+            cap["refs"][b, :len(j["refs"])] = j["refs"]
+            cap["pointers"][b, :j["len"] + 1] = j["pointers"]
+        out.append(cap)
+    return out
+
+
+def nw_jobs_differ(batches: list[dict], judged: str | None = None
                    ) -> tuple[int, int]:
-    """(jobs that differ, jobs compared).  By default the port's outputs
-    are judged against the reference in `dtype`; with `judged` =
-    torch.bfloat16 the reference in that precision is judged instead, in
-    the port's place (the control)."""
+    """(jobs that differ, jobs compared) over K1's or K2's batches: the
+    port's outputs against the plain forward in float32; with `judged` =
+    "bfloat16" the reference in that precision is judged instead, in the
+    port's place (the control)."""
     bad = total = 0
-    for cap in _k1_batches(k1):
-        ref = reference.nw_forward(cap["reads"], cap["lens"], cap["refs"],
-                                   cap["scoring"], dtype=dtype)
+    for cap in batches:
+        args = (cap["reads"], cap["lens"], cap["refs"], cap["scoring"])
+        ref = reference.nw_forward_wide(*args)
         got = ((cap["score"], cap["end_k"], cap["end_state"],
                 cap["pointers"]) if judged is None else
-               reference.nw_forward(cap["reads"], cap["lens"], cap["refs"],
-                                    cap["scoring"], dtype=judged))
+               reference.nw_forward_wide(*args, judged))
         differ = ((got[0] != ref[0]) | (got[1] != ref[1])
                   | (got[2] != ref[2]))
         rows = np.arange(ref[3].shape[1])[None, :, None]
@@ -125,9 +166,15 @@ def calls_wrong(calls: list[dict]) -> int:
     return wrong
 
 
-def numbers(k1, k3, calls, device="cpu", ll=()) -> dict:
-    bad, total = k1_jobs_differ(k1)
+def numbers(k1, k3, calls, device="cpu", ll=(), k2=()) -> dict:
+    """Every number and what it compared; ``k2_reference_s``: the wall
+    seconds of K2's reference."""
+    bad, total = nw_jobs_differ(_k1_batches(k1))
+    t0 = time.perf_counter()
+    bad2, total2 = nw_jobs_differ(_k2_batches(k2))
     return {"k1_jobs_differ": bad, "k1_jobs_compared": total,
+            "k2_jobs_differ": bad2, "k2_jobs_compared": total2,
+            "k2_reference_s": time.perf_counter() - t0,
             "ll_calls_compared": len(ll),
             "ll_rel_gap": ll_rel_gap(ll, device),
             "k3_launches_compared": len(k3),
@@ -136,17 +183,19 @@ def numbers(k1, k3, calls, device="cpu", ll=()) -> dict:
             "loci_compared": sum(len(s["truth"]) for s in calls)}
 
 
-def control(k1, k3, calls, device="cpu", ll=()) -> dict:
+def control(k1, k3, calls, device="cpu", ll=(), k2=()) -> dict:
     """The numbers that the reference reads when it is put in the port's
     place on the same captured inputs, one precision step below the
-    port's: bfloat16 for K1 and K3, TF32 for the GEMM.  It does not
+    port's: bfloat16 for K1, K2 and K3, TF32 for the GEMM.  It does not
     decode, so ``calls_wrong`` is the port's."""
     k3_out = [reference.pair_diff(c["L"], c["rpad"], device=device,
                                   dtype=torch.bfloat16) for c in k3]
     ll_out = [tuple(reference.cluster_ll(c["onehot"], rows, device, "tf32")
                     for rows in (c["contrib"], c["mismatch"])) for c in ll]
-    bad, total = k1_jobs_differ(k1, judged=torch.bfloat16)
+    bad, total = nw_jobs_differ(_k1_batches(k1), judged="bfloat16")
+    bad2, total2 = nw_jobs_differ(_k2_batches(k2), judged="bfloat16")
     return {"k1_jobs_differ": bad, "k1_jobs_compared": total,
+            "k2_jobs_differ": bad2, "k2_jobs_compared": total2,
             "ll_calls_compared": len(ll),
             "ll_rel_gap": ll_rel_gap(ll, device, outputs=ll_out),
             "k3_launches_compared": len(k3),
@@ -156,11 +205,16 @@ def control(k1, k3, calls, device="cpu", ll=()) -> dict:
 
 
 def judge(found: dict, limits: dict) -> tuple[bool, list[tuple]]:
-    """(every number within its limit, [(name, value, limit)]).  A number
-    without captured work fails: nothing was compared."""
-    rows = [(name, found[name], limits[name]) for name in NUMBERS]
-    ok = all(v <= lim for _, v, lim in rows)
-    ok &= found["k1_jobs_compared"] > 0 and found["k3_launches_compared"] > 0
-    ok &= found["ll_calls_compared"] > 0
-    ok &= found["loci_compared"] > 0
+    """(every number that `limits` names within its limit, [(name, value,
+    limit)] in NUMBERS' order).  A named number without captured work
+    fails: nothing was compared.  So does captured work whose number
+    `limits` leaves out: what the window ran goes unjudged."""
+    unknown = set(limits) - set(NUMBERS)
+    if unknown:
+        raise ValueError(f"limits name unknown numbers: {sorted(unknown)}")
+    rows = [(name, found[name], limits[name]) for name in NUMBERS
+            if name in limits]
+    ok = bool(rows) and all(v <= lim for _, v, lim in rows)
+    ok &= all((found[COMPARED[name]] > 0) == (name in limits)
+              for name in NUMBERS)
     return ok, rows

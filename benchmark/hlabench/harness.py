@@ -1,16 +1,22 @@
 """One run of one cell: set-up, the measured window, the check, the result.
 
 Set-up is everything before the window's first sample: imports and the
-CUDA context, the kernels from the port's build cache, the configuration's
-installed panel (built on a checkout's first run), the graph package
-loaded once, one warm-up sample that is not counted, and the window's
-samples drawn from ``--seed``: ``HEADROOM`` times as many as the window
-holds at the warm-up's pace.  The window is a closed loop: one lab
+CUDA context, the kernels from the port's build cache, the port's host
+library (built on a checkout's first run, before the warm-up, so that the
+warm-up's pace leaves the build out), the configuration's installed panel
+(built on a checkout's first run), the graph package loaded once, one
+warm-up sample that is not counted, and the window's samples drawn from
+``--seed``: ``HEADROOM`` times as many as the window holds at the
+warm-up's pace.  The window is a closed loop: one lab
 pipeline typing one sample after another through ``run_hla_typing``, a
 new sample started while less than ``--seconds`` have passed; it ends
 when the last sample finishes.  A window that uses up its samples before
 ``--seconds`` gives no result.  Each sample types into a directory of its
-own under the run's ``TMPDIR``, removed after it.
+own under the run's ``TMPDIR``, removed after it.  A configuration with
+``long_reads`` types unpaired long reads: each sample's reads are cut by
+the port's own ``cli._split_long_reads`` at its own length (50 kb,
+HLA-LA.pl:503-524) inside the sample's time, as the CLI cuts them, and
+typed with ``RunConfig(long_reads=...)``.
 """
 
 from __future__ import annotations
@@ -48,8 +54,10 @@ class OutOfSamples(RuntimeError):
 
 
 # samples drawn: enough for window samples this many times faster than
-# the warm-up
-HEADROOM = 2.0
+# the warm-up.  The warm-up carries every first call's cost: on one H100 a
+# 1.6-1.7 s imgt2-wgs30x-1proc sample took 3.6 s as the warm-up, past
+# what twice its pace left room for
+HEADROOM = 3.0
 
 
 def samples_needed(seconds: float, warm_s: float) -> int:
@@ -174,6 +182,8 @@ class Cell:
             torch.cuda.init()
             from hla_la_tpu_torch import _build
             _build.library()
+        from hla_la_tpu_torch import native
+        native.available()
         from hla_la_tpu_torch.graph.package import GraphPackage
         from hla_la_tpu_torch.utils.config import RunConfig
         inst = panel_mod.ensure_installed(cfg_path, self.cfg,
@@ -181,7 +191,8 @@ class Cell:
         self.panel = panel_mod.load_panel(inst)
         self.pkg = GraphPackage(os.path.join(inst, "pkg"))
         self.rcfg = RunConfig(graph_dir=self.pkg.dir, sample_id="S1",
-                              max_threads=int(self.traffic["max_threads"]))
+                              max_threads=int(self.traffic["max_threads"]),
+                              long_reads=self.cfg.get("long_reads", ""))
         self.probes = probes_mod.Probes()
 
     def sample(self, seed: int, index: int):
@@ -189,18 +200,23 @@ class Cell:
                                      seed, index)
 
     def type_sample(self, sample):
-        """run_hla_typing on `sample`, into a directory of the run's
-        TMPDIR that is removed after it."""
+        """run_hla_typing on `sample`, its long reads cut first, into a
+        directory of the run's TMPDIR that is removed after it."""
         from hla_la_tpu_torch.io.fastq import FastqRead
         from hla_la_tpu_torch.models.pipeline import run_hla_typing
         pairs = [(FastqRead(n, a, qa), FastqRead(n, b, qb))
                  for n, a, qa, b, qb in zip(sample.names, sample.seq1,
                                             sample.qual1, sample.seq2,
                                             sample.qual2)]
+        unpaired = [FastqRead(n, s, q) for n, s, q in zip(
+            sample.u_names, sample.u_seq, sample.u_qual)]
+        if unpaired:
+            from hla_la_tpu_torch.cli import _split_long_reads
+            unpaired = _split_long_reads(unpaired)
         out = tempfile.mkdtemp(prefix="hlabench_",
                                dir=tempfile.gettempdir())
         try:
-            return run_hla_typing(self.pkg, pairs, [], out, self.rcfg,
+            return run_hla_typing(self.pkg, pairs, unpaired, out, self.rcfg,
                                   device=self.device)
         finally:
             shutil.rmtree(out, ignore_errors=True)
@@ -316,7 +332,14 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
                                                 "unit": m["unit"]}
     del samples, records, type_sample
     cell.close()
-    found = check.numbers(cap.k1, cap.k3, calls, device=device, ll=cap.ll)
+    t_check = time.perf_counter()
+    found = check.numbers(cap.k1, cap.k3, calls, device=device, ll=cap.ll,
+                          k2=cap.k2)
+    print(f"the check took {time.perf_counter() - t_check:.3f} s; K2's "
+          f"reference {found['k2_reference_s']:.3f} s on "
+          f"{found['k2_jobs_compared']} jobs of {cap.k2_launches} launches"
+          f", up to {max((j['len'] for j in cap.k2), default=0)} rows",
+          file=sys.stderr)
     ok, rows = check.judge(found, cell.limits)
     result["correct"] = bool(ok and failed == 0 and done > 0)
     result["checks"] = {n: {"value": v, "limit": lim} for n, v, lim in rows}
@@ -331,7 +354,7 @@ def end_to_end(window_s: float, done: int, setup_s: float) -> dict:
 
 def _traced_record(records, window_s, t_w0, tracer, probes, device):
     """What the per-layer readers read: the samples, the device's busy
-    seconds, each K1/K3 launch's shape and device seconds."""
+    seconds, each K1/K2/K3 launch's shape and device seconds."""
     events = tracer.device_events()
     lo = t_w0 - tracer.t0
     hi = lo + window_s
@@ -340,10 +363,10 @@ def _traced_record(records, window_s, t_w0, tracer, probes, device):
         for a, b, name in _phases(r["lines"], r["t0"], r["t1"],
                                   r["align_s"] or 0.0, r["type_s"] or 0.0):
             phases.append((a - tracer.t0, b - tracer.t0, name))
-    launches = {"K1": [(*shape, s.elapsed_time(e) / 1e3)
-                       for shape, (s, e) in probes.k1.timed],
-                "K3": [(*shape, s.elapsed_time(e) / 1e3)
-                       for shape, (s, e) in probes.k3.timed]}
+    launches = {k: [(*shape, s.elapsed_time(e) / 1e3)
+                    for shape, (s, e) in p.timed]
+                for k, p in (("K1", probes.k1), ("K2", probes.k2),
+                             ("K3", probes.k3))}
     sm_count, max_mhz = None, None
     if device == "cuda":
         sm_count = torch.cuda.get_device_properties(0).multi_processor_count

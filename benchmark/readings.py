@@ -39,13 +39,15 @@ def read(workload, seeds, control_seeds, checkout, device="cuda",
                 cell.probes.set_capture(None)
             cell.sync()
             calls = [harness.calls_of(sample, res)]
-            row = {"seed": seed, "program": check.numbers(
-                cap.k1, cap.k3, calls, device=device, ll=cap.ll)}
+            row = {"seed": seed, "k2_launches": cap.k2_launches,
+                   "program": check.numbers(cap.k1, cap.k3, calls,
+                                            device=device, ll=cap.ll,
+                                            k2=cap.k2)}
             row["program_correct"] = check.judge(row["program"],
                                                  cell.limits)[0]
             if seed in control_seeds:
                 row["control"] = check.control(cap.k1, cap.k3, calls,
-                                               device, ll=cap.ll)
+                                               device, ll=cap.ll, k2=cap.k2)
                 row["control_correct"] = check.judge(row["control"],
                                                      cell.limits)[0]
             rows.append(row)
@@ -76,8 +78,10 @@ def main(argv=None) -> int:
             sink.close()
     from hlabench import check
     lower = {k: max(r["program"][k] for r in rows) for k in check.NUMBERS}
+    # the control does not decode: calls_wrong is the port's own
     upper = {k: min(r["control"][k] for r in rows if "control" in r)
-             for k in check.NUMBERS[:3] if any("control" in r for r in rows)}
+             for k in check.NUMBERS if k != "calls_wrong"
+             and any("control" in r for r in rows)}
     verdicts = {"program_correct": [r["program_correct"] for r in rows],
                 "control_correct": [r["control_correct"] for r in rows
                                     if "control" in r]}

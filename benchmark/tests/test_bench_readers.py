@@ -1,6 +1,10 @@
 """The per-layer readers and the frozen roofline formulas on known
 shapes, and the window arithmetic of sample_s."""
 
+import json
+import subprocess
+import sys
+
 import pytest
 
 from hlabench import harness, spec, trace
@@ -72,3 +76,24 @@ def test_busy_seconds_merge_overlaps_and_clip_to_the_window():
     gaps = trace.idle_gaps(ev, 0.0, 10.0,
                            [(0.0, 5.0, "align"), (5.0, 10.0, "type")])
     assert gaps[0] == ["type", 5.0] and gaps[1] == ["align", 1.0]
+
+
+def test_k2_bound_is_chip_smokes_nw_bound_at_its_k2_rows():
+    """PERF.md's kernel table, rows (h), (y) and (aa): chip_smoke.py's
+    nw_bound, read in a process of its own (chip_smoke blocks jax in
+    sys.modules when it is imported)."""
+    shapes = [(838, 10_000, 256), (32, 50_000, 256), (310, 2_273, 256)]
+    code = ("import json, chip_smoke\n"
+            f"print(json.dumps([chip_smoke.nw_bound(*s)['bound_ms'] "
+            f"for s in {shapes!r}]))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO, check=True)
+    want = json.loads(out.stdout.splitlines()[-1])
+    k2 = spec.roofline("k2")
+    assert [1e3 * k2.bound_s(*s) for s in shapes] == pytest.approx(
+        want, rel=1e-12)
+    # PERF.md's bounds of those rows, in ms
+    assert want == pytest.approx([0.6455, 0.1232, 0.0543], abs=5e-5)
+    assert k2.bound_s(5, 1_000, 33) == spec.roofline("k1").bound_s(
+        5, 1_000, 33)
+

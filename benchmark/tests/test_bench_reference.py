@@ -148,3 +148,118 @@ def test_calls_wrong_counts_loci_without_both_planted_alleles():
                                                          "B*05:01"]}
     assert check.calls_wrong([{"truth": truth, "called": called}]) == 1
     assert check.calls_wrong([{"truth": truth, "called": {}}]) == 2
+
+
+def padded_jobs(rng, B, L, W):
+    """random_jobs with ref pads at a window's start and end, as windows
+    off a haplotype's ends have, and some reads shorter than L."""
+    reads, lens, refs = random_jobs(rng, B, L, W)
+    refs[0, :W // 2 + 3] = 4
+    refs[1, L // 2:] = 4
+    lens[2] = L // 3
+    return reads, lens, refs
+
+
+def same_forward(a, b, lens):
+    L = a[3].shape[1] - 1
+    rows = np.arange(L + 1)[None, :, None]
+    live = (rows >= 1) & (rows <= np.asarray(lens)[:, None, None])
+    return (all(np.array_equal(x, y) for x, y in zip(a[:3], b[:3]))
+            and not ((a[3] != b[3]) & live).any())
+
+
+@pytest.mark.parametrize("W", [3, 10, 31, 32, 33, 100, 256])
+def test_wide_nw_is_the_step_by_step_forward_bit_for_bit(W):
+    rng = np.random.default_rng(W)
+    reads, lens, refs = padded_jobs(rng, 12, 60, W)
+    assert same_forward(reference.nw_forward_wide(reads, lens, refs, SC),
+                        reference.nw_forward(reads, lens, refs, SC), lens)
+    # float32 past 256 too: K1's reads of 150 and K2's rows
+    long = padded_jobs(rng, 6, 180, W)
+    assert same_forward(reference.nw_forward_wide(*long, SC),
+                        reference.nw_forward(*long, SC), long[1])
+    # bfloat16 under 256, where it holds every integer: each sum rounded
+    # as PyTorch's bfloat16 arithmetic rounds it
+    assert same_forward(
+        reference.nw_forward_wide(reads, lens, refs, SC, "bfloat16"),
+        reference.nw_forward(reads, lens, refs, SC, dtype=torch.bfloat16),
+        lens)
+
+
+def test_wide_nw_matches_the_ports_plain_version_at_long_reads_band():
+    from hla_la_tpu_torch.ops.banded_nw import banded_nw_plain
+    rng = np.random.default_rng(11)
+    reads, lens, refs = padded_jobs(rng, 6, 300, 256)
+    plain = [t.numpy() for t in banded_nw_plain(
+        torch.from_numpy(reads), torch.from_numpy(lens),
+        torch.from_numpy(refs), SC)]
+    assert same_forward(reference.nw_forward_wide(reads, lens, refs, SC),
+                        plain, lens)
+
+
+def captured_k2(reads, lens, refs, out):
+    """Jobs as probes.Capture.take_k2 keeps them: live rows only."""
+    W = refs.shape[1] - reads.shape[1]
+    return [{"reads": reads[b, :n], "len": int(n), "refs": refs[b, :n + W],
+             "scoring": SC, "score": float(out[0][b]),
+             "end_k": int(out[1][b]), "end_state": int(out[2][b]),
+             "pointers": out[3][b, :n + 1]} for b, n in enumerate(lens)]
+
+
+def test_k2_jobs_differ_counts_jobs_and_the_control_fails_long_reads():
+    rng = np.random.default_rng(12)
+    reads, lens, refs = padded_jobs(rng, 5, 700, 256)
+    out = reference.nw_forward(reads, lens, refs, SC)
+    jobs = captured_k2(reads, lens, refs, out)
+    found = check.numbers([], [], [], k2=jobs)
+    assert (found["k2_jobs_differ"], found["k2_jobs_compared"]) == (0, 5)
+    assert found["k1_jobs_compared"] == 0
+    jobs[3] = dict(jobs[3], score=jobs[3]["score"] + 2)
+    ptr = jobs[4]["pointers"].copy()
+    ptr[lens[4], 7] ^= 8                   # the last live row
+    jobs[4] = dict(jobs[4], pointers=ptr)
+    assert check.nw_jobs_differ(check._k2_batches(jobs)) == (2, 5)
+    # scores past 256 are not integers in bfloat16
+    assert out[0][3:].max() > 256
+    ctl = check.control([], [], [], k2=captured_k2(reads, lens, refs, out))
+    assert ctl["k2_jobs_compared"] == 5 and ctl["k2_jobs_differ"] >= 3
+
+
+def test_k1_and_k2_jobs_go_through_one_comparison():
+    """K1's batches and K2's padded ones give the same verdicts on the
+    same jobs."""
+    rng = np.random.default_rng(13)
+    reads, lens, refs = padded_jobs(rng, 6, 150, 31)
+    out = reference.nw_forward(reads, lens, refs, SC)
+    score = out[0].copy()
+    score[4] += 2                          # an alignable job
+    k1 = [{"reads": reads, "lens": lens.astype(np.int64), "refs": refs,
+           "scoring": SC, "score": score, "end_k": out[1],
+           "end_state": out[2], "pointers": out[3]}]
+    k2 = captured_k2(reads, lens, refs, (score, *out[1:]))
+    assert check.nw_jobs_differ(check._k1_batches(k1)) == (1, 6)
+    assert check.nw_jobs_differ(check._k2_batches(k2)) == (1, 6)
+
+
+def test_judge_holds_a_cell_to_the_numbers_its_limits_name():
+    found = {"k1_jobs_differ": 0, "k1_jobs_compared": 0,
+             "k2_jobs_differ": 0, "k2_jobs_compared": 16,
+             "ll_rel_gap": 1e-7, "ll_calls_compared": 6,
+             "k3_rel_gap": 1e-7, "k3_launches_compared": 2,
+             "calls_wrong": 0, "loci_compared": 17}
+    long_limits = {"k2_jobs_differ": 0, "ll_rel_gap": 1e-5,
+                   "k3_rel_gap": 1e-4, "calls_wrong": 0}
+    ok, rows = check.judge(found, long_limits)
+    assert ok and [r[0] for r in rows] == list(long_limits)
+    # K1 named, but no K1 job captured: nothing compared, not correct
+    assert not check.judge(found, {**long_limits, "k1_jobs_differ": 0})[0]
+    assert not check.judge(dict(found, k2_jobs_compared=0), long_limits)[0]
+    assert not check.judge(dict(found, k2_jobs_differ=1), long_limits)[0]
+    # K1 jobs captured in a run whose limits leave K1 out: not judged, so
+    # not correct
+    assert not check.judge(dict(found, k1_jobs_compared=64), long_limits)[0]
+    assert not check.judge(found, {k: v for k, v in long_limits.items()
+                                   if k != "k3_rel_gap"})[0]
+    assert not check.judge(found, {})[0]
+    with pytest.raises(ValueError):
+        check.judge(found, {"k4_jobs_differ": 0})
